@@ -1,0 +1,3 @@
+from .cli import main_and_exit
+
+main_and_exit()

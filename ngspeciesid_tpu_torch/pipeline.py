@@ -1,0 +1,245 @@
+"""Pipeline orchestrator, stages 1-3 (reference NGSpeciesID:36-158).
+
+Port of ngspeciesid_tpu/pipeline.py: (1) score/filter/sort reads; (2) load
+the empirical minimizer probability table; (3) wave-batched greedy
+clustering (single pass, or the merge-tree sharded schedule when
+nr_cores > 1); then the cluster tables.  Stage 4 (--consensus) and the
+multi-host schedule (NGSID_DISTRIBUTED=1) are not ported yet and exit with
+an error that names their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import random
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ngspeciesid_tpu.cluster.store import ReadStore, build_store
+from ngspeciesid_tpu.config import Config
+from ngspeciesid_tpu.io.fastx import mkdir_p, read_fastx
+from ngspeciesid_tpu.preprocess import score_and_sort
+from ngspeciesid_tpu.utils.ptable import load_p_table, p_table_as_matrix
+
+from .cluster.engine import GapPassTable, reads_to_clusters
+from .device import stats_backend_default, stats_device
+
+logger = logging.getLogger(__name__)
+
+ReadArray = List[Tuple[int, int, str, str, str, float]]
+
+
+def unsupported(cfg: Config) -> Optional[str]:
+    """Why this port cannot run ``cfg`` yet (None when it can)."""
+    if cfg.consensus:
+        return ("--consensus (stage 4) is not ported to ngspeciesid_tpu_torch "
+                "yet; see ROADMAP.md, slice 2")
+    if os.environ.get("NGSID_DISTRIBUTED") == "1":
+        return ("NGSID_DISTRIBUTED=1 (multi-process clustering) is not ported "
+                "to ngspeciesid_tpu_torch yet; see ROADMAP.md, parallel/dist.py")
+    return None
+
+
+def load_read_array(sorted_path: str, cfg: Config) -> ReadArray:
+    """Sorted fastq -> reference-shaped read tuples, with the optional
+    length-window filter and subsampling (reference NGSpeciesID:54-63).
+
+    seq/qual are uint8 buffer views (zero-decode, io/fastx.read_fastx_bytes);
+    every downstream consumer (store build, shard balancing, engine) works on
+    bytes — strings are materialized only at output edges."""
+    from ngspeciesid_tpu.io.fastx import read_fastx_bytes
+
+    if cfg.target_length > 0 and cfg.target_deviation > 0:
+        lo = cfg.target_length - cfg.target_deviation
+        hi = cfg.target_length + cfg.target_deviation
+        read_array = [
+            (i, 0, acc, seq, qual, float(acc.split("_")[-1]))
+            for i, (acc, seq, qual) in enumerate(read_fastx_bytes(sorted_path))
+            if lo <= len(seq) <= hi
+        ]
+    else:
+        read_array = [
+            (i, 0, acc, seq, qual, float(acc.split("_")[-1]))
+            for i, (acc, seq, qual) in enumerate(read_fastx_bytes(sorted_path))
+        ]
+    if cfg.top_reads:
+        read_array = read_array[: cfg.sample_size]
+    elif 0 < cfg.sample_size < len(read_array):
+        # the reference samples with an unseeded RNG (NGSpeciesID:63); we
+        # seed for reproducibility.
+        rnd = random.Random(cfg.seed)
+        keep = sorted(rnd.sample(range(len(read_array)), cfg.sample_size))
+        read_array = [read_array[i] for i in keep]
+    return read_array
+
+
+def _cluster_stage_key(sorted_path: str, cfg: Config) -> str:
+    """Content key of the clustering stage: sorted-reads digest + every
+    parameter that can change cluster assignments (filters applied by
+    load_read_array included, since they select the clustered set)."""
+    from ngspeciesid_tpu.artifacts import file_digest, stage_key
+
+    return stage_key(file_digest(sorted_path), {
+        "stage": "cluster", "k": cfg.k, "w": cfg.w,
+        "min_shared": cfg.min_shared,
+        "mapped_threshold": cfg.mapped_threshold,
+        "aligned_threshold": cfg.aligned_threshold,
+        "min_fraction": cfg.min_fraction,
+        "min_prob_no_hits": cfg.min_prob_no_hits,
+        "symmetric": cfg.symmetric_map_align_thresholds,
+        "align_band": cfg.align_band,
+        "target_length": cfg.target_length,
+        "target_deviation": cfg.target_deviation,
+        "sample_size": cfg.sample_size,
+        "top_reads": cfg.top_reads,
+        "seed": cfg.seed,
+    })
+
+
+def cluster_read_array(
+    read_array: ReadArray, cfg: Config, sorted_path: Optional[str] = None
+) -> Tuple[Dict[int, List[str]], ReadStore, List[int]]:
+    """Stage 3: returns (clusters, store, surviving representative rows)."""
+    cache = key = None
+    if cfg.resume and sorted_path and cfg.outfolder:
+        from ngspeciesid_tpu.artifacts import ArtifactCache, load_clusters
+
+        cache = ArtifactCache(cfg.outfolder)
+        key = _cluster_stage_key(sorted_path, cfg)
+        hit = cache.lookup("cluster", key)
+        if hit is not None:
+            logger.info("Resume: reusing clustering (inputs and parameters unchanged)")
+            clusters = load_clusters(hit[0])
+            store = build_store(read_array, cfg.k, cfg.w)
+            return clusters, store, list(clusters.keys())
+    p_table = load_p_table(cfg.k, cfg.w)
+    p_matrix = p_table_as_matrix(p_table)
+    store = build_store(read_array, cfg.k, cfg.w)
+    max_gap = max((c.size for c in store.min_codes), default=1)
+    gap_table = GapPassTable(p_matrix, cfg.min_prob_no_hits, max_gap)
+    if cfg.nr_cores > 1:
+        from .parallel.merge import merge_tree_clustering
+        clusters, alive = merge_tree_clustering(store, read_array, gap_table, cfg)
+    else:
+        clusters = {i: [acc] for i, _, acc, _, _, _ in read_array}
+        clusters, alive, _ = reads_to_clusters(
+            store, clusters, np.arange(len(read_array)), gap_table, cfg
+        )
+    if cache is not None:
+        from ngspeciesid_tpu.artifacts import save_clusters
+
+        path = cache.path("clusters.json")
+        save_clusters(path, clusters)
+        cache.record("cluster", key, [path])
+    return clusters, store, alive
+
+
+def write_cluster_tables(
+    clusters: Dict[int, List[str]], store: ReadStore, cfg: Config
+) -> int:
+    """final_clusters.tsv + final_cluster_origins.tsv, sorted by
+    (cluster size, representative score) descending (NGSpeciesID:99-119)."""
+    out_path = os.path.join(cfg.outfolder, "final_clusters.tsv")
+    origins_path = os.path.join(cfg.outfolder, "final_cluster_origins.tsv")
+    nontrivial = 0
+    with open(out_path, "w") as out, open(origins_path, "w") as origins:
+        output_cl_id = 0
+        for c_id, accs in sorted(
+            clusters.items(),
+            key=lambda x: (len(x[1]), store.scores[store.row(x[0])]),
+            reverse=True,
+        ):
+            row = store.row(c_id)
+            acc_base = "_".join(store.accs[row].split("_")[:-1])
+            origins.write(
+                "{0}\t{1}\t{2}\t{3}\t{4}\t{5}\n".format(
+                    output_cl_id, acc_base, store.seqs[row], store.quals[row],
+                    float(store.scores[row]), float(store.error_rates[row]),
+                )
+            )
+            for r_acc in sorted(accs, key=lambda x: float(x.split("_")[-1]), reverse=True):
+                out.write("{0}\t{1}\n".format(output_cl_id, "_".join(r_acc.split("_")[:-1])))
+            if len(accs) > 1:
+                nontrivial += 1
+            output_cl_id += 1
+    return nontrivial
+
+
+def run(cfg: Config, stage_walls: Optional[dict] = None) -> None:
+    """Stages 1-3 (reference main, NGSpeciesID:36-119).
+
+    ``stage_walls``: optional dict filled with per-stage wall seconds
+    (sort / cluster).  Raises ValueError for what this port cannot run yet
+    (:func:`unsupported`), and RuntimeError when the cuda backend finds no
+    CUDA device, before any work."""
+    import time
+
+    reason = unsupported(cfg)
+    if reason:
+        raise ValueError(reason)
+    backend = stats_backend_default()
+    if backend in ("cuda", "torch"):
+        stats_device(backend)
+    if stage_walls is None:
+        stage_walls = {}
+    mkdir_p(cfg.outfolder)
+    profiling = bool(getattr(cfg, "profile", False))
+    stage_log = logger.info if profiling else logger.debug
+    prof = None
+    if profiling:
+        # host and device activity, viewable in Perfetto / chrome://tracing;
+        # host stage wall-clocks are promoted to INFO alongside
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if backend == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+    try:
+        t0 = time.time()
+        sorted_path = score_and_sort(cfg)
+        stage_walls["sort"] = time.time() - t0
+        stage_log("elapsed time sorting: %.2fs", stage_walls["sort"])
+        read_array = load_read_array(sorted_path, cfg)
+
+        logger.info("Starting Clustering: %d reads", len(read_array))
+        t0 = time.time()
+        clusters, store, alive = cluster_read_array(read_array, cfg, sorted_path)
+        stage_walls["cluster"] = time.time() - t0
+        stage_log("Time elapsed clustering: %.2fs", stage_walls["cluster"])
+        nontrivial = write_cluster_tables(clusters, store, cfg)
+        logger.info("Finished Clustering: %d clusters formed", nontrivial)
+    finally:
+        if prof is not None:
+            prof.stop()
+            trace_dir = os.path.join(cfg.outfolder, "profile")
+            mkdir_p(trace_dir)
+            trace = os.path.join(trace_dir, "trace.json")
+            prof.export_chrome_trace(trace)
+            logger.info("Profiling: trace -> %s", trace)
+
+
+def write_fastq_subcommand(clusters_path: str, fastq: str, outfolder: str, n_min: int) -> None:
+    """``write_fastq`` subcommand (reference NGSpeciesID:161-182)."""
+    from collections import defaultdict
+
+    clusters = defaultdict(list)
+    with open(clusters_path) as f:
+        for line in f:
+            items = line.strip().split()
+            clusters[items[0]].append(items[1])
+    mkdir_p(outfolder)
+    # keyed by the first whitespace token: the cluster table's whitespace
+    # split only keeps that token, and the reference's full-header keying
+    # (NGSpeciesID:172) KeyErrors on ONT headers with runid metadata.
+    reads = {acc.split()[0]: (seq, qual) for acc, seq, qual in read_fastx(fastq)}
+    for cl_id, accs in clusters.items():
+        if len(accs) >= n_min:
+            with open(os.path.join(outfolder, f"{cl_id}.fastq"), "w") as f:
+                for acc in accs:
+                    seq, qual = reads[acc]
+                    f.write(f"@{acc}\n{seq}\n+\n{qual}\n")
+

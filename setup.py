@@ -11,6 +11,7 @@ setup(
     entry_points={
         "console_scripts": [
             "NGSpeciesID-tpu=ngspeciesid_tpu.cli:main_and_exit",
+            "NGSpeciesID-torch=ngspeciesid_tpu_torch.cli:main_and_exit",
         ]
     },
 )
