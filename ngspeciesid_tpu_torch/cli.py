@@ -1,8 +1,8 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 The same flags, defaults, presets, groups, subcommand and validation as
-ngspeciesid_tpu/cli.py (reference NGSpeciesID:187-287).  Stage 4
-(--consensus) is not ported yet and exits 1.
+ngspeciesid_tpu/cli.py (reference NGSpeciesID:187-287).  What the port
+cannot run yet (:func:`pipeline.unsupported`) exits 1 before stage 1.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import argparse
 import logging
 import sys
 
-from ngspeciesid_tpu.config import Config
+from .config import Config
 
 from . import pipeline
 
@@ -53,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="Polisher model: a medaka model NAME maps to the built-in "
              "quality-weighted pileup caller (accuracy-equivalent at "
              "amplicon depth; no neural net runs — diverges from the "
-             "reference, which passes the name to medaka), a PATH loads "
-             "trained GRU params (models/train.py npz)")
+             "reference, which passes the name to medaka); a PATH to "
+             "trained GRU params is not ported yet and exits 1")
     parser.add_argument("--medaka_fastq", action="store_true", help="Write fastq consensus output")
     parser.add_argument("--racon_iter", type=int, default=2, help="Polishing iterations")
     group2 = parser.add_mutually_exclusive_group()

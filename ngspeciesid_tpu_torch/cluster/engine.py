@@ -44,10 +44,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ngspeciesid_tpu.config import Config
-from ngspeciesid_tpu.cluster.store import ReadStore
-
+from ..config import Config
 from ..ops.align import block_stats_batch
+from .store import ReadStore
 
 logger = logging.getLogger(__name__)
 
@@ -382,7 +381,7 @@ def _decide_waves(
     import os as _os
 
     if _os.environ.get("NGSID_DECIDE") != "python":
-        from ngspeciesid_tpu import native
+        from .. import native
 
         if native.available():
             return _decide_waves_native(store, rows, snap, gap_table, cfg)
@@ -392,7 +391,7 @@ def _decide_waves(
 def _decide_waves_native(
     store: ReadStore, rows: np.ndarray, snap, gap_table: GapPassTable, cfg: Config,
 ) -> List[Tuple[int, List[int]]]:
-    from ngspeciesid_tpu import native
+    from .. import native
 
     n_wave = rows.size
     code_rows = [store.min_codes[r] for r in rows.tolist()]
@@ -591,7 +590,7 @@ def _run_alignments(
         """Batched (ratio, rep_ratio) for fresh pairs on the chosen backend;
         cuda sends every batch, however small, through the kernel."""
         if backend == "native":
-            from ngspeciesid_tpu import native
+            from .. import native
             addrs, lens = _addr_cols(store)
             r1 = np.fromiter(todo_r1, np.int64, count=len(todo_r1))
             r2 = np.fromiter(todo_r2, np.int64, count=len(todo_r2))

@@ -1,13 +1,15 @@
 """Stats backend choice and the device it runs on.
 
-``NGSID_STATS_BACKEND`` picks where the clustering engine's fallback
-alignments run (the counterpart of the reference's ``stats_backend_default``,
-ngspeciesid_tpu/ops/align.py):
+``NGSID_STATS_BACKEND`` picks where every alignment runs: the clustering
+engine's fallback statistics, and stage 4's draft POA, RC-merge identity
+and polish pileup (the counterpart of the reference's
+``stats_backend_default``, ngspeciesid_tpu/ops/align.py):
 
-  cuda    the hand-written CUDA kernel on ``cuda:0`` (default)
-  torch   the kernel's plain PyTorch version on CPU tensors
-  native  the shared C++ engine (ngspeciesid_tpu/native)
-  host    numpy traceback mirror (through the C++ engine when it builds)
+  cuda    the hand-written CUDA kernels on ``cuda:0`` (default)
+  torch   the kernels' plain PyTorch versions on CPU tensors
+  native  the port's copy of the C++ engine (native/sgdp.cpp)
+  host    numpy mirrors: statistics from a traceback (through the C++
+          engine when it builds), moves from the numpy DP
 
 Choosing ``cuda`` on a machine without a visible CUDA device raises: the port
 never moves device work to the CPU on its own.

@@ -1,10 +1,11 @@
 """Batched semi-global (overlap) alignment with affine gaps: numpy oracle
-and the stats-only dispatch.
+and the dispatch over backends.
 
 Port of ngspeciesid_tpu/ops/align.py without its JAX row-scan DP: the numpy
 oracle (``sg_dp_numpy``, traceback, match vector, window stats, identity),
-its batched mirror, and the dispatch ``block_stats_batch`` /
-``identity_batch`` over the backends of :mod:`ngspeciesid_tpu_torch.device`.
+its batched mirror, and the dispatch ``sg_align_batch`` (moves) /
+``block_stats_batch`` / ``identity_batch`` (statistics) over the backends of
+:mod:`ngspeciesid_tpu_torch.device`.
 
 Scoring follows the reference's parasail usage: match/mismatch over "ACGT",
 affine gaps where a gap of length L costs ``open + (L-1) * ext``, and FREE
@@ -262,19 +263,29 @@ def sg_align_batch(
     """Align a batch of byte-sequence pairs; return per-pair move arrays
     (full alignment columns incl. terminal gaps).
 
-    backend: "native" (C++ engine), "numpy", or None for native when it
-    builds, else numpy.  band > 0 restricts the native DP to +-band of the
-    scaled main diagonal; the numpy mirror always runs the full DP."""
+    backend (default :func:`stats_backend_default`): "cuda" (the moves
+    kernel) or "torch" (its plain PyTorch version on the CPU), "native" (C++
+    engine), "numpy" or "host" (the numpy mirror).  band > 0 restricts the
+    cuda, torch and native DPs to +-band of the scaled main diagonal (exact
+    whenever the optimal path stays inside); the numpy mirror always runs
+    the full DP."""
     if not pairs:
         return []
     B = len(pairs)
-    if backend is None:
-        from ngspeciesid_tpu import native
-        backend = "native" if native.available() else "numpy"
+    backend = backend or stats_backend_default()
     if backend == "native":
-        from ngspeciesid_tpu import native
+        from .. import native
         return native.align_batch_native(pairs, gap_opens, match, mismatch,
                                          gap_ext, band=band)
+    if backend in ("cuda", "torch"):
+        # banded DP + on-device traceback; O(n+m) bytes per pair leave the
+        # device (ops/align_moves.py)
+        from .align_moves import sg_moves_batch_torch
+        return sg_moves_batch_torch(pairs, gap_opens, match=match,
+                                    mismatch=mismatch, gap_ext=gap_ext,
+                                    band=band, device=stats_device(backend))
+    if backend == "host":
+        backend = "numpy"
     if backend != "numpy":
         raise ValueError(f"unknown alignment backend {backend!r}")
     # numpy mirror has no compile cost: pad tightly
@@ -320,6 +331,13 @@ def sg_align_numpy(
 # stats-only dispatch: the two statistics every consumer actually needs
 # ---------------------------------------------------------------------------
 
+def _host_moves_backend() -> str:
+    """The moves behind the stats ``host`` backend: the C++ engine when it
+    builds, else the numpy mirror."""
+    from .. import native
+    return "native" if native.available() else "numpy"
+
+
 def block_stats_batch(
     pairs: List[Tuple[np.ndarray, np.ndarray]],
     gap_opens: List[int], ks: List[int], match_ids: List[int],
@@ -333,14 +351,15 @@ def block_stats_batch(
         return []
     backend = backend or stats_backend_default()
     if backend == "native":
-        from ngspeciesid_tpu import native
+        from .. import native
         return native.block_stats_native(pairs, gap_opens, ks, match_ids,
                                          band=band)
     if backend in ("cuda", "torch"):
         from .align_stats import block_stats_torch
         return block_stats_torch(pairs, gap_opens, ks, match_ids, band=band,
                                  device=stats_device(backend))
-    moves = sg_align_batch(pairs, gap_opens, band=band)
+    moves = sg_align_batch(pairs, gap_opens, band=band,
+                           backend=_host_moves_backend())
     out = []
     for t, (a, b) in enumerate(pairs):
         mv = match_vector(moves[t], a, b)
@@ -358,12 +377,13 @@ def identity_batch(
         return []
     backend = backend or stats_backend_default()
     if backend == "native":
-        from ngspeciesid_tpu import native
+        from .. import native
         return native.identity_native(pairs, gap_opens, band=band)
     if backend in ("cuda", "torch"):
         from .align_stats import identity_torch
         return identity_torch(pairs, gap_opens, band=band,
                               device=stats_device(backend))
-    moves = sg_align_batch(pairs, gap_opens, band=band)
+    moves = sg_align_batch(pairs, gap_opens, band=band,
+                           backend=_host_moves_backend())
     return [identity_from_moves(moves[t], a, b)
             for t, (a, b) in enumerate(pairs)]

@@ -111,17 +111,12 @@ def device_pool(device: torch.device) -> SeqPool:
 # the DP: kernel wrapper and its plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def stats_rows(pool: torch.Tensor, pm: torch.Tensor, base: torch.Tensor,
-               W: int, d_max: int, band: int, match: int = 2,
-               mismatch: int = -2, gap_ext: int = 1) -> torch.Tensor:
-    """Raw endpoint rows of one chunk: (B, 16) int32, row tracker in columns
-    0-7 and column tracker in 8-15, each [score, coord, hist, wsum, wcount,
-    mcount, colcount, diagonal].
-
-    pool: uint8 (P,) sequences; pm: int64 (B, 8) rows [len1, len2, gap_open,
-    k, match_id, off1, off2, 0]; base: int32 window origin per diagonal,
-    at least d_max + 1 long, where d_max >= max(len1 + len2); W: window
-    lanes.  CUDA tensors run the kernel, CPU tensors the plain version."""
+def check_chunk(pool: torch.Tensor, pm: torch.Tensor, base: torch.Tensor,
+                W: int, d_max: int) -> None:
+    """Raise ValueError unless a chunk's inputs are what the kernels take:
+    a contiguous 1-D uint8 pool, a contiguous (B, 8) int64 pair table and a
+    contiguous int32 window schedule of at least d_max + 1 diagonals, on
+    one device, with a positive window width."""
     if pool.dtype != torch.uint8 or pool.dim() != 1 or not pool.is_contiguous():
         raise ValueError("pool must be a contiguous 1-D uint8 tensor")
     if pm.dtype != torch.int64 or pm.dim() != 2 or pm.shape[1] != 8 \
@@ -135,6 +130,20 @@ def stats_rows(pool: torch.Tensor, pm: torch.Tensor, base: torch.Tensor,
         raise ValueError(f"window width must be positive, got {W}")
     if not (pool.device == pm.device == base.device):
         raise ValueError("pool, pm and base must be on one device")
+
+
+def stats_rows(pool: torch.Tensor, pm: torch.Tensor, base: torch.Tensor,
+               W: int, d_max: int, band: int, match: int = 2,
+               mismatch: int = -2, gap_ext: int = 1) -> torch.Tensor:
+    """Raw endpoint rows of one chunk: (B, 16) int32, row tracker in columns
+    0-7 and column tracker in 8-15, each [score, coord, hist, wsum, wcount,
+    mcount, colcount, diagonal].
+
+    pool: uint8 (P,) sequences; pm: int64 (B, 8) rows [len1, len2, gap_open,
+    k, match_id, off1, off2, 0]; base: int32 window origin per diagonal,
+    at least d_max + 1 long, where d_max >= max(len1 + len2); W: window
+    lanes.  CUDA tensors run the kernel, CPU tensors the plain version."""
+    check_chunk(pool, pm, base, W, d_max)
     if pool.device.type == "cuda":
         return _stats_rows_cuda(pool, pm, base, W, band, match, mismatch,
                                 gap_ext)
@@ -206,6 +215,57 @@ def _push(st: torch.Tensor, bit, km1, kk, mid, mask) -> None:
     wc += (cc >= kk) & (ws >= mid)
 
 
+def padded_rows(pool: torch.Tensor, pm: torch.Tensor, d_max: int, hi: int):
+    """The pair's sequences as padded int32 rows, so that each diagonal's
+    substitution column is a slice: s1p[:, i] = s1[i - 1] and
+    s2r[:, d_max - j] = s2[j - 1], with -1 / -2 outside the sequence (never
+    equal).  ``hi``: one past the last row index any window reaches."""
+    i32 = torch.int32
+    dev = pool.device
+    len1, len2 = pm[:, 0:1], pm[:, 1:2]
+    last = pool.numel() - 1
+    x = torch.arange(hi, device=dev)[None, :]
+    s1p = torch.where((x >= 1) & (x <= len1),
+                      pool[(pm[:, 5:6] + x - 1).clamp(0, last)].to(i32), -1)
+    y = torch.arange(d_max + hi, device=dev)[None, :]
+    j = d_max - y
+    s2r = torch.where((j >= 1) & (j <= len2),
+                      pool[(pm[:, 6:7] + j - 1).clamp(0, last)].to(i32), -2)
+    return s1p, s2r
+
+
+def interior_rows(pm: torch.Tensor, d_max: int, band: int):
+    """Per diagonal and pair: the diagonal index ``dds`` (D+1, 1), the rows
+    [i_lo, i_hi] (D+1, B, 1) of its interior cells (the band test solved for
+    i; exact in integers), and whether its boundary cells (0, d) and (d, 0)
+    exist (D+1, B) bool."""
+    i32, i64 = torch.int32, torch.int64
+    dds = torch.arange(d_max + 1, dtype=i64, device=pm.device)[:, None]
+    L1, L2 = pm[:, 0][None, :], pm[:, 1][None, :]
+    i_lo = torch.clamp(dds - L2, min=1)
+    i_hi = torch.minimum(L1, dds - 1)
+    if band > 0:
+        tot = L1 + L2
+        i_lo = torch.maximum(i_lo, -torch.div(-(dds - band) * L1, tot,
+                                              rounding_mode="floor"))
+        i_hi = torch.minimum(i_hi, torch.div((dds + band + 1) * L1 - 1, tot,
+                                             rounding_mode="floor"))
+    return (dds, i_lo.to(i32)[..., None], i_hi.to(i32)[..., None], dds <= L2,
+            dds <= L1)
+
+
+def end_lanes(pm: torch.Tensor, bases: List[int], W: int):
+    """The lane of each diagonal's last-row cell (i = len1; pairs 0..B-1)
+    and last-column cell (j = len2; pairs B..2B-1), clamped into the window,
+    and whether it lies inside the window: both (D+1, 2B)."""
+    base64 = torch.tensor(bases, dtype=torch.int64, device=pm.device)[:, None]
+    dds = torch.arange(len(bases), dtype=torch.int64, device=pm.device)[:, None]
+    end_lane = torch.cat((pm[:, 0][None, :] - base64,
+                          dds - pm[:, 1][None, :] - base64), dim=1)
+    end_in = (end_lane >= 0) & (end_lane < W)
+    return end_lane.clamp(0, W - 1), end_in
+
+
 def stats_rows_plain(pool, pm, base, W, d_max, band, match=2, mismatch=-2,
                      gap_ext=1) -> torch.Tensor:
     """Plain PyTorch version of the stats DP: the same wavefront over (B, W)
@@ -223,46 +283,15 @@ def stats_rows_plain(pool, pm, base, W, d_max, band, match=2, mismatch=-2,
     bases = base[: d_max + 1].tolist()
     hi = max(bases) + W
 
-    # the sequences as padded rows, so that each diagonal's substitution
-    # column is a slice: s1p[:, i] = s1[i - 1] and s2r[:, d_max - j] =
-    # s2[j - 1], with -1 / -2 outside the sequence (never equal)
-    last = pool.numel() - 1
-    x = torch.arange(hi, device=dev)[None, :]
-    s1p = torch.where((x >= 1) & (x <= len1),
-                      pool[(pm[:, 5:6] + x - 1).clamp(0, last)].to(i32), -1)
-    y = torch.arange(d_max + hi, device=dev)[None, :]
-    j = d_max - y
-    s2r = torch.where((j >= 1) & (j <= len2),
-                      pool[(pm[:, 6:7] + j - 1).clamp(0, last)].to(i32), -2)
-
-    # per diagonal and pair: the rows [lo, hi] of its interior cells (the
-    # band test solved for i; exact in integers), whether its boundary cells
-    # (0, d) and (d, 0) exist, and the boundary restart's window count
-    dds = torch.arange(d_max + 1, dtype=i64, device=dev)[:, None]
-    L1, L2 = pm[:, 0][None, :], pm[:, 1][None, :]
-    i_lo = torch.clamp(dds - L2, min=1)
-    i_hi = torch.minimum(L1, dds - 1)
-    if band > 0:
-        tot = L1 + L2
-        i_lo = torch.maximum(i_lo, -torch.div(-(dds - band) * L1, tot,
-                                              rounding_mode="floor"))
-        i_hi = torch.minimum(i_hi, torch.div((dds + band + 1) * L1 - 1, tot,
-                                             rounding_mode="floor"))
-    i_lo, i_hi = i_lo.to(i32)[..., None], i_hi.to(i32)[..., None]
-    top_ok = (dds <= L2).to(i32)
-    left_ok = (dds <= L1).to(i32)
+    s1p, s2r = padded_rows(pool, pm, d_max, hi)
+    dds, i_lo, i_hi, top_ok, left_ok = interior_rows(pm, d_max, band)
+    top_ok, left_ok = top_ok.to(i32), left_ok.to(i32)
     wc0 = torch.where(pm[:, 4][None, :] <= 0,
                       torch.clamp(dds - pm[:, 3][None, :] + 1, min=0), 0)
     bnd = torch.zeros((d_max + 1, 6, B), dtype=i32, device=dev)
     bnd[:, 3] = wc0
     bnd[:, 5] = dds
-
-    # endpoint history: the last-row and last-column cell of each diagonal
-    # (one lane per pair), reduced to the trackers after the sweep
-    base64 = torch.tensor(bases, dtype=i64, device=dev)[:, None]
-    end_lane = torch.cat((L1 - base64, dds - L2 - base64), dim=1)  # (D+1, 2B)
-    end_in = (end_lane >= 0) & (end_lane < W)
-    end_lane = end_lane.clamp(0, W - 1)
+    end_lane, end_in = end_lanes(pm, bases, W)
     b2 = torch.arange(B, device=dev).repeat(2)
     end_cell = torch.zeros((d_max + 1, 6, 2 * B), dtype=i32, device=dev)
     end_valid = torch.zeros((d_max + 1, 2 * B), dtype=i32, device=dev)
@@ -590,6 +619,24 @@ def sg_stats_pool_torch(
     return out  # type: ignore[return-value]
 
 
+def pair_rows(pairs) -> Tuple[List[np.ndarray], List[int], List[int]]:
+    """Explicit pairs as ``(seqs, rows1, rows2)``: each distinct array
+    object becomes one row."""
+    seqs: List[np.ndarray] = []
+    row_of: dict = {}
+    rows1, rows2 = [], []
+    for a, b in pairs:
+        for arr, rows in ((a, rows1), (b, rows2)):
+            key = id(arr)
+            r = row_of.get(key)
+            if r is None:
+                r = len(seqs)
+                row_of[key] = r
+                seqs.append(arr)
+            rows.append(r)
+    return seqs, rows1, rows2
+
+
 def sg_stats_batch_torch(
     pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     gap_opens: Sequence[int],
@@ -603,18 +650,7 @@ def sg_stats_batch_torch(
     objects share one pool row."""
     if not pairs:
         return []
-    seqs: List[np.ndarray] = []
-    row_of: dict = {}
-    rows1, rows2 = [], []
-    for a, b in pairs:
-        for arr, rows in ((a, rows1), (b, rows2)):
-            key = id(arr)
-            r = row_of.get(key)
-            if r is None:
-                r = len(seqs)
-                row_of[key] = r
-                seqs.append(arr)
-            rows.append(r)
+    seqs, rows1, rows2 = pair_rows(pairs)
     return sg_stats_pool_torch(
         seqs, rows1, rows2, gap_opens, ks, match_ids,
         match=match, mismatch=mismatch, gap_ext=gap_ext, band=band,

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, which is loaded with
-``ctypes``.  The library lands in ``ngspeciesid_tpu_torch/_build/`` (ignored
+The sources are compiled at first use with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and linked into one
+shared library with a plain C interface, which is loaded with ``ctypes``.  The library lands in ``ngspeciesid_tpu_torch/_build/`` (ignored
 by git) under a name keyed on a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one is reused.  A failed build raises with
 nvcc's output; nothing falls back.
@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 #: Wall seconds of the last nvcc run in this process (None: library reused).
@@ -55,6 +55,20 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libngsid_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise with their output if one fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    for p, c in zip(procs, cmds):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{log}")
+    return log
+
+
 def build() -> str:
     """Compile ``csrc/*.cu`` unless the library for these sources exists."""
     global BUILD_SECONDS, BUILD_LOG
@@ -63,14 +77,21 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *sorted(glob.glob(os.path.join(CSRC, "*.cu")))]
+    nvcc = _nvcc()
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                        for src, obj in zip(sources, objs)])
+        log += _run_all([[nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp,
+                          *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+    BUILD_LOG = log
     os.replace(tmp, so)           # atomic: concurrent builders never see half
     return so
 
@@ -86,6 +107,11 @@ def load() -> ctypes.CDLL:
         lib.ngsid_stats_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                            ci, ci, vp]
         lib.ngsid_stats_launch.restype = ci
+        lib.ngsid_moves_scratch_ints.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.ngsid_moves_scratch_ints.restype = ci
+        lib.ngsid_moves_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                           ci, ci, ci, ci, ci, ci, vp]
+        lib.ngsid_moves_launch.restype = ci
         lib.ngsid_error_string.argtypes = [ci]
         lib.ngsid_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -25,11 +25,10 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
-from ngspeciesid_tpu.config import Config
-from ngspeciesid_tpu.cluster.store import ReadStore
-from ngspeciesid_tpu.io.fastx import mkdir_p
-
+from ..config import Config
 from ..cluster.engine import GapPassTable, MinimizerDB, reads_to_clusters
+from ..cluster.store import ReadStore
+from ..io.fastx import mkdir_p
 
 logger = logging.getLogger(__name__)
 

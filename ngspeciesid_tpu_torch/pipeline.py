@@ -1,11 +1,12 @@
-"""Pipeline orchestrator, stages 1-3 (reference NGSpeciesID:36-158).
+"""Pipeline orchestrator (reference NGSpeciesID:36-158).
 
 Port of ngspeciesid_tpu/pipeline.py: (1) score/filter/sort reads; (2) load
 the empirical minimizer probability table; (3) wave-batched greedy
 clustering (single pass, or the merge-tree sharded schedule when
-nr_cores > 1); then the cluster tables.  Stage 4 (--consensus) and the
-multi-host schedule (NGSID_DISTRIBUTED=1) are not ported yet and exit with
-an error that names their ROADMAP item.
+nr_cores > 1); (4) cluster table output; (5) with --consensus, draft
+consensus, trim, RC dedup and polish.  The multi-host schedule
+(NGSID_DISTRIBUTED=1) and the GRU polisher (--medaka_model <params file>)
+are not ported yet and exit with an error that names their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -13,18 +14,20 @@ from __future__ import annotations
 import logging
 import os
 import random
+import shutil
+import tempfile
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ngspeciesid_tpu.cluster.store import ReadStore, build_store
-from ngspeciesid_tpu.config import Config
-from ngspeciesid_tpu.io.fastx import mkdir_p, read_fastx
-from ngspeciesid_tpu.preprocess import score_and_sort
-from ngspeciesid_tpu.utils.ptable import load_p_table, p_table_as_matrix
-
 from .cluster.engine import GapPassTable, reads_to_clusters
+from .cluster.store import ReadStore, build_store
+from .config import Config
+from .consensus.stage import run_consensus_stage
 from .device import stats_backend_default, stats_device
+from .io.fastx import mkdir_p, read_fastx
+from .preprocess import score_and_sort
+from .utils.ptable import load_p_table, p_table_as_matrix
 
 logger = logging.getLogger(__name__)
 
@@ -33,9 +36,10 @@ ReadArray = List[Tuple[int, int, str, str, str, float]]
 
 def unsupported(cfg: Config) -> Optional[str]:
     """Why this port cannot run ``cfg`` yet (None when it can)."""
-    if cfg.consensus:
-        return ("--consensus (stage 4) is not ported to ngspeciesid_tpu_torch "
-                "yet; see ROADMAP.md, slice 2")
+    if cfg.consensus and cfg.medaka and os.path.isfile(cfg.medaka_model):
+        return ("--medaka_model with a GRU params file: the GRU polisher is "
+                "not ported to ngspeciesid_tpu_torch yet; see ROADMAP.md, "
+                "section 1, item 10")
     if os.environ.get("NGSID_DISTRIBUTED") == "1":
         return ("NGSID_DISTRIBUTED=1 (multi-process clustering) is not ported "
                 "to ngspeciesid_tpu_torch yet; see ROADMAP.md, parallel/dist.py")
@@ -49,7 +53,7 @@ def load_read_array(sorted_path: str, cfg: Config) -> ReadArray:
     seq/qual are uint8 buffer views (zero-decode, io/fastx.read_fastx_bytes);
     every downstream consumer (store build, shard balancing, engine) works on
     bytes — strings are materialized only at output edges."""
-    from ngspeciesid_tpu.io.fastx import read_fastx_bytes
+    from .io.fastx import read_fastx_bytes
 
     if cfg.target_length > 0 and cfg.target_deviation > 0:
         lo = cfg.target_length - cfg.target_deviation
@@ -79,7 +83,7 @@ def _cluster_stage_key(sorted_path: str, cfg: Config) -> str:
     """Content key of the clustering stage: sorted-reads digest + every
     parameter that can change cluster assignments (filters applied by
     load_read_array included, since they select the clustered set)."""
-    from ngspeciesid_tpu.artifacts import file_digest, stage_key
+    from .artifacts import file_digest, stage_key
 
     return stage_key(file_digest(sorted_path), {
         "stage": "cluster", "k": cfg.k, "w": cfg.w,
@@ -104,7 +108,7 @@ def cluster_read_array(
     """Stage 3: returns (clusters, store, surviving representative rows)."""
     cache = key = None
     if cfg.resume and sorted_path and cfg.outfolder:
-        from ngspeciesid_tpu.artifacts import ArtifactCache, load_clusters
+        from .artifacts import ArtifactCache, load_clusters
 
         cache = ArtifactCache(cfg.outfolder)
         key = _cluster_stage_key(sorted_path, cfg)
@@ -128,7 +132,7 @@ def cluster_read_array(
             store, clusters, np.arange(len(read_array)), gap_table, cfg
         )
     if cache is not None:
-        from ngspeciesid_tpu.artifacts import save_clusters
+        from .artifacts import save_clusters
 
         path = cache.path("clusters.json")
         save_clusters(path, clusters)
@@ -168,12 +172,14 @@ def write_cluster_tables(
 
 
 def run(cfg: Config, stage_walls: Optional[dict] = None) -> None:
-    """Stages 1-3 (reference main, NGSpeciesID:36-119).
+    """Full pipeline (reference main, NGSpeciesID:36-158).
 
     ``stage_walls``: optional dict filled with per-stage wall seconds
-    (sort / cluster).  Raises ValueError for what this port cannot run yet
-    (:func:`unsupported`), and RuntimeError when the cuda backend finds no
-    CUDA device, before any work."""
+    (sort / cluster / consensus_polish, and the stage-4 phases inside
+    consensus_polish as stage4_draft / _trim / _rc / _polish).  Raises
+    ValueError for what this port cannot run yet (:func:`unsupported`), and
+    RuntimeError when the cuda backend finds no CUDA device, before any
+    work."""
     import time
 
     reason = unsupported(cfg)
@@ -204,6 +210,7 @@ def run(cfg: Config, stage_walls: Optional[dict] = None) -> None:
         stage_walls["sort"] = time.time() - t0
         stage_log("elapsed time sorting: %.2fs", stage_walls["sort"])
         read_array = load_read_array(sorted_path, cfg)
+        abundance_cutoff = int(cfg.abundance_ratio * len(read_array))
 
         logger.info("Starting Clustering: %d reads", len(read_array))
         t0 = time.time()
@@ -212,6 +219,28 @@ def run(cfg: Config, stage_walls: Optional[dict] = None) -> None:
         stage_log("Time elapsed clustering: %.2fs", stage_walls["cluster"])
         nontrivial = write_cluster_tables(clusters, store, cfg)
         logger.info("Finished Clustering: %d clusters formed", nontrivial)
+
+        if cfg.consensus:
+            logger.info("Starting Consensus creation and polishing")
+            work_dir = tempfile.mkdtemp()
+            logger.debug(
+                "Forming draft consensus with abundance_cutoff >= %d (%s%% of %d reads)",
+                abundance_cutoff, cfg.abundance_ratio * 100, len(read_array),
+            )
+            rep_scores = {int(store.ids[store.row(c)]): float(store.scores[store.row(c)])
+                          for c in clusters}
+            phases: dict = {}
+            t0 = time.time()
+            centers = run_consensus_stage(
+                clusters, rep_scores, sorted_path, work_dir, abundance_cutoff,
+                cfg, walls=phases)
+            stage_walls["consensus_polish"] = time.time() - t0
+            for phase, wall in phases.items():
+                stage_walls[f"stage4_{phase}"] = wall
+            stage_log("Time elapsed consensus+polish: %.2fs",
+                      stage_walls["consensus_polish"])
+            shutil.rmtree(work_dir)
+            logger.info("Finished Consensus creation: %d created", len(centers))
     finally:
         if prof is not None:
             prof.stop()

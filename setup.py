@@ -5,7 +5,9 @@ setup(
     version="0.1.0",
     description="TPU-native amplicon species-ID engine (clustering + consensus + polishing)",
     packages=find_packages(exclude=("tests", "tests.*")),
-    package_data={"ngspeciesid_tpu": ["data/*.npz"]},
+    package_data={"ngspeciesid_tpu": ["data/*.npz"],
+                  "ngspeciesid_tpu_torch": ["data/*.npz", "native/*.cpp",
+                                            "csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     entry_points={

@@ -1,7 +1,8 @@
-"""The port never imports JAX, and never runs device work on the CPU unasked.
+"""The port never imports JAX or the JAX package, and never runs device
+work on the CPU unasked.
 
-Both checks run in a subprocess: tests/conftest.py imports jax into this
-process for the whole session.
+The runtime checks run in a subprocess: tests/conftest.py imports jax into
+this process for the whole session.
 """
 
 import os
@@ -13,6 +14,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ngspeciesid_tpu_torch")
+SMOKE = os.path.join(REPO, "chip_smoke.py")
 
 
 @pytest.fixture(scope="module")
@@ -48,16 +50,22 @@ def test_cpu_cli_run_imports_no_jax(tiny_pool, tmp_path):
         "import ngspeciesid_tpu_torch\n"
         "from ngspeciesid_tpu_torch import cli\n"
         f"rc = cli.main(['--ont', '--fastq', {tiny_pool!r}, '--t', '2',\n"
+        f"               '--consensus', '--medaka',\n"
+        f"               '--abundance_ratio', '0.2',\n"
         f"               '--outfolder', {str(out)!r}])\n"
         "assert rc == 0, rc\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'flax', 'optax')))\n"
         "assert not bad, bad\n"
+        "ref = sorted(m for m in sys.modules if m == 'ngspeciesid_tpu' or "
+        "m.startswith('ngspeciesid_tpu.'))\n"
+        "assert not ref, ref\n"
         "print('NO_JAX_OK')\n")
     proc = _run(["-c", code], "torch")
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
     assert (out / "final_clusters.tsv").stat().st_size > 0
+    assert list(out.glob("medaka_cl_id_*/consensus.fasta"))
 
 
 def test_cuda_backend_without_gpu_fails_loudly(tiny_pool, tmp_path):
@@ -72,8 +80,16 @@ def test_cuda_backend_without_gpu_fails_loudly(tiny_pool, tmp_path):
 
 def test_no_port_source_names_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
+    # the JAX package itself, even its JAX-free modules, and its scripts
+    reference = re.compile(
+        r"^\s*(import|from)\s+ngspeciesid_tpu(?!_torch)\b"
+        r"|[\"']scripts[\"'/\\]", re.M)
+    sources = [SMOKE]
     for root, _, files in os.walk(PORT):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(root, name)) as f:
-                    assert not pattern.search(f.read()), name
+        sources += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    assert len(sources) > 20
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        assert not pattern.search(text), path
+        assert not reference.search(text), path
