@@ -9,7 +9,7 @@ Phases, each fatal on failure:
 
 1. Device and build: requires CUDA, builds csrc/*.cu with nvcc (one process
    per source, all at once), prints the build time, the ptxas report of
-   both kernels and the card's name and power limit.
+   the three kernels and the card's name and power limit.
 2. Each kernel against its plain PyTorch version, on the card:
    a. stats kernel: raw (B, 16) endpoint rows bit-equal on seeded pairs over
       lengths {90-120, 300-500, 500-800, 1100-1400}, k {13, 20, 26}, band
@@ -20,10 +20,18 @@ Phases, each fatal on failure:
       same lengths, band {0, 150}, POA and clustering scoring, mutated and
       unrelated pairs.  At band 0 the reconstructed moves must also equal
       the numpy oracle.
+   c. full-DP kernel: moves and endpoint rows bit-equal over lengths
+      {8-90, 90-120, 300-500, 500-800, 1100-1400}, POA and clustering
+      scoring, mutated and unrelated pairs, and an 11-pair batch; op
+      streams equal to the numpy oracle up to 500 bp.  At the polish shape
+      its entry point, sg_align_batch_full, runs once with the counts at 0
+      (its launches in the JSON line come from there) and its op streams
+      must equal the native engine's band-0 DP.
    Each is timed against its plain version per launch at the main path's
    shape (CUDA events, warm, median): the stats kernel at 4096 pairs, the
-   moves kernel at the polish shape (one ~700 bp center against 512 reads
-   of 650-750 bp, band 150, POA scoring).
+   moves and full-DP kernels at the polish shape (one ~700 bp center
+   against 512 reads of 650-750 bp; band 150 for the moves kernel; POA
+   scoring).
 3. Main path: simulates a 20,000-read pool (50 species, 700 bp, 7% error)
    with the port's simulator and runs the CLI in-process with
    --consensus --medaka, on the default backend (cuda) and on the native
@@ -31,7 +39,11 @@ Phases, each fatal on failure:
    count must equal the pairs its callers asked for; both kernels must
    have launched in the cuda run and neither in the native run.  A second
    run (5,000 reads, 20 species, --consensus --racon --racon_iter 2)
-   covers the racon files, PAFs included, the same way.
+   covers the racon files, PAFs included, the same way.  A third (c) runs
+   the 20k pool with --medaka_model and the in-repo GRU weights: besides
+   the above, one GRU forward per polished center, on cuda:0 in the cuda
+   run and on the CPU in the native run; it prints the GRU's device time
+   and one center's logits difference between the card and the CPU.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON line and {"ok": true, "device": {...}}.  Imports
@@ -75,6 +87,20 @@ INT32_OPS_PER_S = 33.5e12
 #: 2 compares and an and for the window; wcount and mcount adds) x 3 layers.
 MOVES_OPS_PER_CELL = 13
 STATS_OPS_PER_CELL = 9 + 3 * 10
+#: (pairs, min length, max length, POA scoring) of the full-DP kernel's
+#: cases: half of each batch mutated copies, half unrelated pairs, and an
+#: 11-pair batch.
+FULL_CASES = [(8, lo, hi, poa)
+              for lo, hi in ((8, 90), (90, 120), (300, 500), (500, 800),
+                             (1100, 1400))
+              for poa in (True, False)] + [(11, 30, 40, False)]
+#: the full DP's operations per cell: the moves kernel's recurrence and
+#: move byte
+FULL_OPS_PER_CELL = MOVES_OPS_PER_CELL
+#: The GRU's largest logits difference, cuda:0 against the CPU, on one
+#: center's features.  float32 on both sides reads about 2e-5 on an H100;
+#: TF32 would move it to about 1e-3.
+GRU_LOGITS_ATOL = 1e-4
 
 
 def log(msg):
@@ -292,12 +318,7 @@ def phase_moves_kernel(A, M, dev, cases=MOVES_CASES):
             f"({len(chunks)} chunk{'s' * (len(chunks) > 1)})")
 
     # the polish shape: one center against 512 reads, one chunk
-    center = rng.integers(65, 69, size=700).astype(np.uint8)
-    reads = []
-    while len(reads) < 512:
-        r = mutate(rng, center, 0.07)
-        if 650 <= r.size <= 750:
-            reads.append(r)
+    center, reads = polish_shape(rng)
     seqs = [center] + reads
     r2 = list(range(1, len(seqs)))
     assert len(M._plan(seqs, [0] * 512, r2)) == 1
@@ -324,6 +345,128 @@ def phase_moves_kernel(A, M, dev, cases=MOVES_CASES):
         f"{plain_ms} ms/launch, bound {bound} ms ({by})")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by)
+
+
+def polish_shape(rng):
+    """One 700 bp center and 512 reads of 650-750 bp mutated from it."""
+    import numpy as np
+
+    center = rng.integers(65, 69, size=700).astype(np.uint8)
+    reads = []
+    while len(reads) < 512:
+        r = mutate(rng, center, 0.07)
+        if 650 <= r.size <= 750:
+            reads.append(r)
+    return center, reads
+
+
+def phase_full_dp_kernel(F, dev, cases=FULL_CASES):
+    """Phase 2c: full-DP kernel moves and endpoint rows against the plain
+    version's, bit for bit; op streams against the numpy oracle (small
+    sizes) and the native engine's band-0 DP (the polish shape); its time at
+    the polish shape; and its launches from its entry point,
+    ``sg_align_batch_full``, run once at that shape with the counts at 0."""
+    import numpy as np
+    import torch
+
+    from ngspeciesid_tpu_torch import native
+    from ngspeciesid_tpu_torch.ops.align import sg_align_batch, traceback_moves
+    from ngspeciesid_tpu_torch.ops.poa import (
+        POA_EXT, POA_MATCH, POA_MISMATCH, POA_OPEN)
+
+    rng = np.random.default_rng(2)
+    poa = (POA_MATCH, POA_MISMATCH, POA_EXT)
+    max_err = 0
+
+    def held(pairs, opens, scoring, what):
+        nonlocal max_err
+        staged = F.stage_pairs(pairs, opens, dev)
+        moves, best = F.full_dp_rows(*staged, *scoring)
+        p_moves, p_best = F.full_dp_rows_plain(*staged, *scoring)
+        torch.cuda.synchronize()
+        err = max(int((best.long() - p_best.long()).abs().max()),
+                  int((moves != p_moves).sum()))
+        max_err = max(max_err, err)
+        if not (torch.equal(moves, p_moves) and torch.equal(best, p_best)):
+            bad = ((best != p_best).any(1)
+                   | (moves != p_moves).flatten(1).any(1))
+            raise AssertionError(
+                f"full DP kernel differs from the plain version: {what}, "
+                f"pairs {bad.nonzero().flatten().tolist()[:8]}")
+        return staged, moves, best
+
+    for B, lo, hi, is_poa in cases:
+        seqs, opens, _, _ = make_pairs(rng, B, lo, hi, 13)
+        scoring = poa if is_poa else (2, -2, 1)
+        if is_poa:
+            opens = [POA_OPEN] * B
+        pairs = list(zip(seqs[0::2], seqs[1::2]))
+        what = (f"B={B} len {lo}-{hi} "
+                f"{'POA' if is_poa else 'clustering'} scoring")
+        held(pairs, opens, scoring, what)
+        if hi <= 500:
+            got = F.sg_align_batch_full(pairs, opens, *scoring, device=dev)
+            want = sg_align_batch(pairs, opens, *scoring, backend="numpy")
+            for t, (g, w) in enumerate(zip(got, want)):
+                if g.tolist() != w.tolist():
+                    raise AssertionError(
+                        f"full DP op streams differ from the numpy oracle: "
+                        f"{what}, pair {t}")
+        log(f"full DP kernel == plain: {what}"
+            f"{', streams == numpy oracle' if hi <= 500 else ''}")
+
+    center, reads = polish_shape(rng)
+    pairs = [(center, r) for r in reads]
+    opens = [POA_OPEN] * len(pairs)
+    staged, moves, best = held(pairs, opens, poa, "polish shape")
+    ms = time_cuda(lambda: F.full_dp_rows(*staged, *poa), 9)
+    plain_ms = time_cuda(lambda: F.full_dp_rows_plain(*staged, *poa), 3)
+    t0 = time.perf_counter()
+    host_moves = moves.cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    best = best.cpu().numpy()
+    t0 = time.perf_counter()
+    for p, r in enumerate(reads):
+        rb, rj, cb, ci = best[p]
+        end = (center.size, int(rj)) if rb >= cb else (int(ci), r.size)
+        traceback_moves(F.row_view(host_moves[p], center.size, r.size),
+                        center.size, r.size, end)
+    traceback_s = time.perf_counter() - t0
+    del host_moves
+
+    F.reset_counts()
+    t0 = time.perf_counter()
+    got = F.sg_align_batch_full(pairs, opens, *poa)   # default device
+    entry_s = time.perf_counter() - t0
+    launches = F.LAUNCHES
+    if launches == 0 or F.PAIRS != len(pairs) or F.PLAIN_LAUNCHES:
+        raise AssertionError(
+            f"sg_align_batch_full ran {F.PAIRS} pairs in {launches} kernel "
+            f"launches and {F.PLAIN_LAUNCHES} plain ones")
+    want = native.align_batch_native(pairs, opens, *poa, band=0)
+    for t, (g, w) in enumerate(zip(got, want)):
+        if g.tolist() != w.tolist():
+            raise AssertionError(f"full DP op streams differ from the native "
+                                 f"band-0 DP at the polish shape: pair {t}")
+    s1, s2, meta = staged
+    cells = int((meta[:, 0].long() * meta[:, 1].long()).sum())
+    # bytes the work needs: both sequence blocks and the pair table in, one
+    # move byte per interior cell and the endpoint rows out (the diagonal
+    # layout's padding is the kernel's choice, not the work's)
+    nbytes = (s1.numel() + s2.numel() + meta.numel() * 4 + cells
+              + best.size * 4)
+    bound, by = bound_ms(nbytes, cells * FULL_OPS_PER_CELL)
+    log(f"full DP kernel at the polish shape (512 pairs, 700 bp center, "
+        f"reads 650-750 bp, L={moves.shape[2]}, {moves.shape[1]} diagonals, "
+        f"{cells} cells, {nbytes} bytes needed): kernel {ms} ms/launch, plain "
+        f"{plain_ms} ms/launch, bound {bound} ms ({by}); move matrix "
+        f"{moves.numel()} bytes to the host in {copy_s} s, host traceback "
+        f"{traceback_s} s")
+    log(f"full DP entry point sg_align_batch_full at the polish shape: "
+        f"{launches} launch(es), {F.PAIRS} pairs, wall {entry_s} s, op "
+        f"streams == native band-0 DP")
+    return launches, dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by)
 
 
 def warm_native():
@@ -397,13 +540,15 @@ def explain_stage4_diff(work, name):
     return f"center {c_id}: {name} differs; no round-1 pair differs"
 
 
-def run_backends(A, M, work, pool, args):
+def run_backends(A, M, work, pool, args, gru=False):
     """The CLI on ``pool`` with ``args``, on cuda and on native: every
     output file byte-equal, kernel pairs equal to the pairs asked for, both
-    kernels launched on cuda and neither on native.  Returns the cuda run's
-    kernel launches."""
+    kernels launched on cuda and neither on native; with ``gru``, one GRU
+    forward per polished center, on cuda:0 in the cuda run and on the CPU
+    in the native run.  Returns the cuda run's kernel launches."""
     from ngspeciesid_tpu_torch import cli
     from ngspeciesid_tpu_torch.cluster import engine
+    from ngspeciesid_tpu_torch.models import polisher
 
     asked = {"stats": 0, "moves": 0}
     calls = {"stats": (A, "sg_stats_pool_torch"),
@@ -426,6 +571,7 @@ def run_backends(A, M, work, pool, args):
         asked.update(stats=0, moves=0)
         A.reset_counts()
         M.reset_counts()
+        polisher.FORWARDS.clear()
         engine.reset_perf_counters()
         t0 = time.perf_counter()
         try:
@@ -443,10 +589,11 @@ def run_backends(A, M, work, pool, args):
             raise AssertionError(f"CLI with backend {backend} exited {rc}")
         counts = {"stats": (A.LAUNCHES, A.PAIRS), "moves": (M.LAUNCHES,
                                                            M.PAIRS)}
-        results[backend] = (counts, dict(asked))
+        results[backend] = (counts, dict(asked), dict(polisher.FORWARDS))
         log(f"[{backend}] {' '.join(args)}: wall {wall} s, stage walls "
             f"{json.dumps(walls)}, kernel launches/pairs {json.dumps(counts)}"
-            f", pairs asked {json.dumps(asked)}, engine phases "
+            f", pairs asked {json.dumps(asked)}, GRU forwards "
+            f"{json.dumps(polisher.FORWARDS)}, engine phases "
             f"{json.dumps(engine.PERF_COUNTERS)}")
     del os.environ["NGSID_STATS_BACKEND"]
     cuda, native = (_tree(os.path.join(work, b)) for b in ("cuda", "native"))
@@ -465,7 +612,7 @@ def run_backends(A, M, work, pool, args):
     log(f"{len(cuda)} output files byte-equal between cuda and native "
         f"({len(polished)} polished centers, "
         f"{sum(len(v) for v in cuda.values())} bytes)")
-    counts, asked_cuda = results["cuda"]
+    counts, asked_cuda, _ = results["cuda"]
     for kind in ("stats", "moves"):
         launches, pairs = counts[kind]
         if launches == 0 or pairs != asked_cuda[kind]:
@@ -474,7 +621,68 @@ def run_backends(A, M, work, pool, args):
                 f"its callers asked for {asked_cuda[kind]}")
         if results["native"][0][kind] != (0, 0):
             raise AssertionError(f"the native run launched the {kind} kernel")
+    for backend, device in (("cuda", "cuda:0"), ("native", "cpu")):
+        want = {device: len(polished)} if gru else {}
+        if results[backend][2] != want:
+            raise AssertionError(
+                f"GRU forwards of the {backend} run: {results[backend][2]}, "
+                f"expected {want}")
     return {kind: counts[kind][0] for kind in counts}
+
+
+def phase_gru(A, M, work, pool):
+    """Phase 3c: the main path with the GRU polisher (--medaka_model, the
+    in-repo weights) on cuda and on native, through run_backends; the GRU's
+    device time (CUDA events around each cuda forward, feature upload and
+    logits download included); and one center's logits on the card against
+    the CPU's on the same features."""
+    import numpy as np
+    import torch
+
+    from ngspeciesid_tpu_torch.models import polisher
+
+    weights = os.path.join(HERE, "ngspeciesid_tpu_torch", "data",
+                           "polisher_gru.npz")
+    real = polisher.forward_logits
+    first = []
+    gru_ms = []
+
+    def timed(model, feats):
+        if next(model.parameters()).device.type != "cuda":
+            return real(model, feats)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(model, feats)
+        end.record()
+        end.synchronize()
+        gru_ms.append(start.elapsed_time(end))
+        if not first:
+            first.append((feats, out))
+        return out
+
+    polisher.forward_logits = timed
+    try:
+        launches = run_backends(
+            A, M, work, pool,
+            ["--ont", "--consensus", "--medaka", "--medaka_model", weights,
+             "--abundance_ratio", "0.005"], gru=True)
+    finally:
+        polisher.forward_logits = real
+    feats, gpu = first[0]
+    cpu = real(polisher.load_params(weights, torch.device("cpu")), feats)
+    gap = float(np.abs(gpu - cpu).max())
+    same_argmax = bool((gpu.argmax(-1) == cpu.argmax(-1)).all())
+    log(f"GRU on cuda:0: {len(gru_ms)} forwards, {sum(gru_ms)} ms in all, "
+        f"median {statistics.median(gru_ms)} ms (features {feats.shape}); "
+        f"first center's logits, cuda:0 vs CPU: max abs difference {gap} "
+        f"(limit {GRU_LOGITS_ATOL}), argmax equal {same_argmax}")
+    if gap > GRU_LOGITS_ATOL or not same_argmax:
+        raise AssertionError(
+            f"GRU logits on cuda:0 differ from the CPU's by {gap} (limit "
+            f"{GRU_LOGITS_ATOL}), argmax equal {same_argmax}: is the card's "
+            f"GRU running below float32 (TF32)?")
+    return launches
 
 
 def simulate(out, n_reads, n_species):
@@ -498,6 +706,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    from ngspeciesid_tpu_torch.ops import align_full as F
     from ngspeciesid_tpu_torch.ops import align_moves as M
     from ngspeciesid_tpu_torch.ops import align_stats as A
     from ngspeciesid_tpu_torch.ops import cuda_lib
@@ -521,12 +730,13 @@ def main():
 
     stats = phase_stats_kernel(A, dev)
     moves = phase_moves_kernel(A, M, dev)
+    full_launches, full = phase_full_dp_kernel(F, dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        pool = os.path.join(work, "pool20k.fastq")
-        simulate(pool, 20000, 50)
+        pool20k = os.path.join(work, "pool20k.fastq")
+        simulate(pool20k, 20000, 50)
         launches = run_backends(
-            A, M, os.path.join(work, "medaka"), pool,
+            A, M, os.path.join(work, "medaka"), pool20k,
             ["--ont", "--consensus", "--medaka", "--abundance_ratio", "0.005"])
         pool = os.path.join(work, "pool5k.fastq")
         simulate(pool, 5000, 20)
@@ -534,6 +744,7 @@ def main():
             A, M, os.path.join(work, "racon"), pool,
             ["--ont", "--consensus", "--racon", "--racon_iter", "2",
              "--abundance_ratio", "0.005"])
+        phase_gru(A, M, os.path.join(work, "gru"), pool20k)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -548,6 +759,10 @@ def main():
              source="ngspeciesid_tpu_torch/csrc/moves_kernel.cu",
              replaces="ngspeciesid_tpu/ops/align_moves_pallas.py:75",
              launches=launches["moves"], library_ms=None, **moves),
+        dict(name="full_dp_kernel", route="cuda",
+             source="ngspeciesid_tpu_torch/csrc/full_dp_kernel.cu",
+             replaces="ngspeciesid_tpu/ops/align_pallas.py:45",
+             launches=full_launches, library_ms=None, **full),
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 Port of ngspeciesid_tpu/consensus/stage.py: the draft POA and the polish
 pileup align through the moves kernel, the RC merge's column identity
-through the stats kernel (on the ``cuda`` backend).  It reproduces the
+through the stats kernel (on the ``cuda`` backend), and ``--medaka_model
+<params npz>`` runs the GRU polisher (models/polisher.py).  It reproduces the
 reference's consensus pipeline (reference NGSpeciesID:124-158,
 modules/consensus.py, modules/barcode_trimmer.py) with every compute step on
 our batched kernels instead of spoa/edlib/parasail/medaka/racon subprocesses.
@@ -278,17 +279,18 @@ def _load_neural_polisher(medaka_model: str):
       bundled GRU at every amplicon depth x error cell, so model names map
       to the caller rather than to an unproven net (SURVEY N6 demotion).
     * a path to trained GRU params (models/train.py npz) -> the GRU head,
-      which this port does not have yet: it raises (ROADMAP.md, item 10).
+      returned as ``(model, neural_polish_round)``, with the model on
+      :func:`~ngspeciesid_tpu_torch.device.polisher_device`.
     * anything else -> error (never a silent fallback to a different
       polisher than the one asked for).
     """
     if not medaka_model:
         return None
     if os.path.isfile(medaka_model):
-        raise NotImplementedError(
-            f"--medaka_model {medaka_model!r}: the GRU polisher is not "
-            f"ported to ngspeciesid_tpu_torch yet (ROADMAP.md, section 1, "
-            f"item 10)")
+        from ..device import polisher_device, stats_backend_default
+        from ..models.polisher import load_params, neural_polish_round
+        device = polisher_device(stats_backend_default())
+        return load_params(medaka_model, device), neural_polish_round
     if _MEDAKA_NAME.match(medaka_model):
         logger.warning(
             "medaka model %r: substituting the quality-weighted pileup "
@@ -338,7 +340,9 @@ def _polish_subset(seqs, quals):
 
 def polish_sequences(centers: List[List], cfg: Config) -> List[List]:
     """Polish every center with the pileup polisher, writing the
-    reference's file layout (consensus.py:186-246)."""
+    reference's file layout (consensus.py:186-246).  A GRU params file is
+    loaded (and checked) once, before any center is polished."""
+    neural = _load_neural_polisher(cfg.medaka_model) if cfg.medaka else None
     if cfg.medaka:
         pattern = os.path.join(cfg.outfolder, "medaka_cl_id_*")
     elif cfg.racon:
@@ -371,9 +375,13 @@ def polish_sequences(centers: List[List], cfg: Config) -> List[List]:
             # flip reverse-strand reads before the pileup
             from ..ops.poa import orient_reads
             p_seqs, p_quals, _ = orient_reads(polished, p_seqs, p_quals)
-            _load_neural_polisher(cfg.medaka_model)   # names only: no GRU
-            for _ in range(2):
+            if neural is not None:
+                model, neural_round = neural
                 polished = polish_round(polished, p_seqs, p_quals)
+                polished = neural_round(model, polished, p_seqs, p_quals)
+            else:
+                for _ in range(2):
+                    polished = polish_round(polished, p_seqs, p_quals)
             centers[i][2] = bytes_to_str(polished)
             name = f"consensus_cl_id_{c_id}_total_supporting_reads_{nr_reads}"
             if cfg.medaka_fastq:

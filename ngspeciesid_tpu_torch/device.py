@@ -11,6 +11,11 @@ and polish pileup (the counterpart of the reference's
   host    numpy mirrors: statistics from a traceback (through the C++
           engine when it builds), moves from the numpy DP
 
+The GRU polisher (``--medaka_model <params npz>``) follows the same choice
+(:func:`polisher_device`): it runs on ``cuda:0`` under ``cuda``, and on the
+CPU under ``torch``, ``native`` and ``host``, which are CPU runs the caller
+chose.
+
 Choosing ``cuda`` on a machine without a visible CUDA device raises: the port
 never moves device work to the CPU on its own.
 """
@@ -46,3 +51,9 @@ def stats_device(backend: str) -> torch.device:
     if backend == "torch":
         return torch.device("cpu")
     raise ValueError(f"backend {backend!r} does not run on a torch device")
+
+
+def polisher_device(backend: str) -> torch.device:
+    """The device the GRU polisher runs on under ``backend``: ``cuda:0``
+    for ``cuda`` (raises when no CUDA device is visible), else the CPU."""
+    return stats_device("cuda") if backend == "cuda" else torch.device("cpu")

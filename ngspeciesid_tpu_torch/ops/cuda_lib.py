@@ -112,6 +112,9 @@ def load() -> ctypes.CDLL:
         lib.ngsid_moves_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                            ci, ci, ci, ci, ci, ci, vp]
         lib.ngsid_moves_launch.restype = ci
+        lib.ngsid_full_dp_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                             ci, ci, ci, ci, vp]
+        lib.ngsid_full_dp_launch.restype = ci
         lib.ngsid_error_string.argtypes = [ci]
         lib.ngsid_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -4,9 +4,10 @@ Port of ngspeciesid_tpu/pipeline.py: (1) score/filter/sort reads; (2) load
 the empirical minimizer probability table; (3) wave-batched greedy
 clustering (single pass, or the merge-tree sharded schedule when
 nr_cores > 1); (4) cluster table output; (5) with --consensus, draft
-consensus, trim, RC dedup and polish.  The multi-host schedule
-(NGSID_DISTRIBUTED=1) and the GRU polisher (--medaka_model <params file>)
-are not ported yet and exit with an error that names their ROADMAP item.
+consensus, trim, RC dedup and polish (the GRU polisher with
+--medaka_model <params npz>).  The multi-host schedule
+(NGSID_DISTRIBUTED=1) is not ported yet and exits with an error that names
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,10 +37,6 @@ ReadArray = List[Tuple[int, int, str, str, str, float]]
 
 def unsupported(cfg: Config) -> Optional[str]:
     """Why this port cannot run ``cfg`` yet (None when it can)."""
-    if cfg.consensus and cfg.medaka and os.path.isfile(cfg.medaka_model):
-        return ("--medaka_model with a GRU params file: the GRU polisher is "
-                "not ported to ngspeciesid_tpu_torch yet; see ROADMAP.md, "
-                "section 1, item 10")
     if os.environ.get("NGSID_DISTRIBUTED") == "1":
         return ("NGSID_DISTRIBUTED=1 (multi-process clustering) is not ported "
                 "to ngspeciesid_tpu_torch yet; see ROADMAP.md, parallel/dist.py")

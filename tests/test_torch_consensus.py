@@ -176,13 +176,18 @@ class TestModules:
         assert len(got) == 3
 
 
-def test_medaka_model_name_and_params_file(tmp_path):
+def test_medaka_model_name_and_params_file(monkeypatch):
+    from ngspeciesid_tpu_torch.models.polisher import (
+        GRUPolisher, neural_polish_round)
+
     assert port_stage._load_neural_polisher("") is None
     assert port_stage._load_neural_polisher("r941_min_high_g360") is None
-    params = tmp_path / "gru.npz"
-    np.savez(params, w=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_stage._load_neural_polisher(str(params))
+    monkeypatch.setenv("NGSID_STATS_BACKEND", "torch")
+    params = os.path.join(REPO, "ngspeciesid_tpu_torch", "data",
+                          "polisher_gru.npz")
+    model, fn = port_stage._load_neural_polisher(params)
+    assert isinstance(model, GRUPolisher) and fn is neural_polish_round
+    assert next(model.parameters()).device == torch.device("cpu")
     with pytest.raises(ValueError):
         port_stage._load_neural_polisher("not a model")
 

@@ -43,14 +43,18 @@ def _run(args, backend, cwd=REPO):
                           capture_output=True, text=True, timeout=300)
 
 
-def test_cpu_cli_run_imports_no_jax(tiny_pool, tmp_path):
+@pytest.mark.parametrize("gru", [False, True], ids=["pileup", "gru"])
+def test_cpu_cli_run_imports_no_jax(tiny_pool, tmp_path, gru):
     out = tmp_path / "out"
+    model = (["--medaka_model",
+              os.path.join(PORT, "data", "polisher_gru.npz")] if gru else [])
     code = (
         "import sys\n"
         "import ngspeciesid_tpu_torch\n"
         "from ngspeciesid_tpu_torch import cli\n"
+        "from ngspeciesid_tpu_torch.models import polisher\n"
         f"rc = cli.main(['--ont', '--fastq', {tiny_pool!r}, '--t', '2',\n"
-        f"               '--consensus', '--medaka',\n"
+        f"               '--consensus', '--medaka', *{model!r},\n"
         f"               '--abundance_ratio', '0.2',\n"
         f"               '--outfolder', {str(out)!r}])\n"
         "assert rc == 0, rc\n"
@@ -60,6 +64,8 @@ def test_cpu_cli_run_imports_no_jax(tiny_pool, tmp_path):
         "ref = sorted(m for m in sys.modules if m == 'ngspeciesid_tpu' or "
         "m.startswith('ngspeciesid_tpu.'))\n"
         "assert not ref, ref\n"
+        f"assert bool(polisher.FORWARDS) == {gru!r}, polisher.FORWARDS\n"
+        "assert set(polisher.FORWARDS) <= {'cpu'}, polisher.FORWARDS\n"
         "print('NO_JAX_OK')\n")
     proc = _run(["-c", code], "torch")
     assert proc.returncode == 0, proc.stderr[-3000:]

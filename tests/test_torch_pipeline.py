@@ -67,13 +67,8 @@ def test_outputs_byte_equal_to_reference(pool, tmp_path, monkeypatch, shards):
         assert _read(tmp_path / "port", name) == want, name
 
 
-@pytest.mark.parametrize("env, extra", [
-    ({}, ["--consensus", "--medaka", "--medaka_model", "GRU_PARAMS"]),
-    ({"NGSID_DISTRIBUTED": "1"}, [])])
+@pytest.mark.parametrize("env, extra", [({"NGSID_DISTRIBUTED": "1"}, [])])
 def test_unported_paths_exit_1(pool, tmp_path, monkeypatch, env, extra):
-    params = tmp_path / "gru.npz"
-    params.write_bytes(b"")
-    extra = [str(params) if a == "GRU_PARAMS" else a for a in extra]
     monkeypatch.setenv("NGSID_STATS_BACKEND", "torch")
     for key, value in env.items():
         monkeypatch.setenv(key, value)
