@@ -3,41 +3,58 @@
 
 Run from the repository root, with no arguments and no install:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --times-only # phase 1, then 2d without the plain versions
+
+``--times-only`` uses only the kernels' public wrappers, so a copy of this
+file run from an older checkout's root times that checkout's kernels at the
+same shapes on the same seeds.
 
 Phases, each fatal on failure:
 
 1. Device and build: requires CUDA, builds csrc/*.cu with nvcc (one process
    per source, all at once), prints the build time, the ptxas report of
-   the three kernels and the card's name and power limit.
+   the kernels and the card's name and power limit.
 2. Each kernel against its plain PyTorch version, on the card:
    a. stats kernel: raw (B, 16) endpoint rows bit-equal on seeded pairs over
       lengths {90-120, 300-500, 500-800, 1100-1400}, k {13, 20, 26}, band
-      {0, 150}, batch 8, and at the clustering path's shape (4096 pairs,
-      ~700 bp, band 150, k 13).  At band 0 the finalized statistics must
-      also equal the numpy oracle.
+      {0, 150}, batch 8; at band 0 on two 2.5-3 kb pairs (W = 3200); on one
+      pair of ~16.5 kb reads at band 150 and at band 0 (d_max >= 32768: the
+      unpacked path fields, in register and in memory mode); and at the
+      clustering path's shape (4096 pairs, ~700 bp, band 150, k 13).
+      Chunks of up to 8 pairs run again under every launch geometry the
+      kernel takes (each lane count, memory mode).  At band 0 the finalized
+      statistics must also equal the numpy oracle.
    b. moves kernel: raw endpoint rows and op streams bit-equal over the
-      same lengths, band {0, 150}, POA and clustering scoring, mutated and
-      unrelated pairs.  At band 0 the reconstructed moves must also equal
-      the numpy oracle.
+      same lengths and the 2.5-3 kb pairs at band 0, band {0, 150}, POA and
+      clustering scoring, mutated and unrelated pairs, every geometry for
+      small chunks.  At band 0 the reconstructed moves must also equal the
+      numpy oracle.
    c. full-DP kernel: moves and endpoint rows bit-equal over lengths
       {8-90, 90-120, 300-500, 500-800, 1100-1400}, POA and clustering
       scoring, mutated and unrelated pairs, and an 11-pair batch; op
       streams equal to the numpy oracle up to 500 bp.  At the polish shape
       its entry point, sg_align_batch_full, runs once with the counts at 0
       (its launches in the JSON line come from there) and its op streams
-      must equal the native engine's band-0 DP.
-   Each is timed against its plain version per launch at the main path's
-   shape (CUDA events, warm, median): the stats kernel at 4096 pairs, the
-   moves and full-DP kernels at the polish shape (one ~700 bp center
-   against 512 reads of 650-750 bp; band 150 for the moves kernel; POA
-   scoring).
+      must equal the native engine's band-0 DP; timed there against its
+      plain version.
+   d. times per launch (CUDA events, warm median) of the stats kernel at a
+      4096-pair clustering wave and a 128-pair launch (~700 bp, band 150,
+      k 13), and of the moves kernel at the polish shape (one ~700 bp
+      center against 512 reads of 650-750 bp; band 150, POA scoring) and a
+      100-pair draft-sized launch of the same kind; both kernels also at
+      band 0 on ~700 bp and ~1.4 kb reads (windows of 1152 and 1664
+      lanes); each against its plain version (bit-equal there too) and its
+      bound.
+   e. the geometry sweep: the same shapes under every register-mode launch
+      geometry with 1-8 pairs per block.
 3. Main path: simulates a 20,000-read pool (50 species, 700 bp, 7% error)
    with the port's simulator and runs the CLI in-process with
    --consensus --medaka, on the default backend (cuda) and on the native
    C++ engine.  Every output file must be byte-equal; each kernel's pair
    count must equal the pairs its callers asked for; both kernels must
-   have launched in the cuda run and neither in the native run.  A second
+   have launched in the cuda run and neither in the native run; the cuda
+   run's pairs per launch are printed as a histogram.  A second
    run (5,000 reads, 20 species, --consensus --racon --racon_iter 2)
    covers the racon files, PAFs included, the same way.  A third (c) runs
    the 20k pool with --medaka_model and the in-repo GRU weights: besides
@@ -69,12 +86,23 @@ STAGE3_OUTPUTS = ("sorted.fastq", "final_clusters.tsv",
 STATS_CASES = [(8, lo, hi, k, band)
                for lo, hi in ((90, 120), (300, 500), (500, 800), (1100, 1400))
                for k in (13, 20, 26) for band in (0, 150)] + [
-                   (4096, 650, 750, 13, 150)]
+                   (2, 2500, 3000, 13, 0), (1, 16400, 16800, 13, 150),
+                   (1, 16400, 16800, 13, 0), (4096, 650, 750, 13, 150)]
 #: (pairs, min length, max length, band, POA scoring) of the moves kernel's
 #: cases; half of each batch mutated copies, half unrelated pairs.
 MOVES_CASES = [(8, lo, hi, band, poa)
                for lo, hi in ((90, 120), (300, 500), (500, 800), (1100, 1400))
-               for band in (0, 150) for poa in (True, False)]
+               for band in (0, 150) for poa in (True, False)] + [
+                   (2, 2500, 3000, 0, True)]
+#: The timed launches, (pairs, read length, band): the stats kernel's
+#: clustering wave and a launch of the main path's typical size; the moves
+#: kernel's polish and draft shapes; and for both, band 0 (the full DP, a
+#: user setting) on ~700 bp and ~1.4 kb reads, whose windows (1152 and 1664
+#: lanes) are wider than the stats kernel's register mode takes.
+STATS_TIMED = ((4096, 700, 150), (128, 700, 150), (128, 700, 0),
+               (128, 1400, 0))
+MOVES_TIMED = ((512, 700, 150), (100, 700, 150), (100, 700, 0),
+               (100, 1400, 0))
 #: H100 SXM peaks (NVIDIA's H100 data sheet and architecture white paper):
 #: device memory bytes per second and int32 operations per second.
 HBM_BYTES_PER_S = 3.35e12
@@ -83,10 +111,12 @@ INT32_OPS_PER_S = 33.5e12
 #: recurrence (E: 2 sub + max; F: 2 sub + max; diagonal: compare + add;
 #: H: 2 max) and the move byte (2 compares for the layer, 2 for the
 #: gap-open bits).  Stats: the same 9 score operations plus one push of the
-#: path fields per layer (hist shift, or, mask; popcount; colcount add;
-#: 2 compares and an and for the window; wcount and mcount adds) x 3 layers.
+#: path fields per layer (hist shift-in; popcount; 2 compares and an and
+#: for the window; wcount add) x 3 layers, and one add for the diagonal
+#: step's match and column counts (a gap step's column count follows from
+#: the diagonal, csrc/stats_kernel.cu).
 MOVES_OPS_PER_CELL = 13
-STATS_OPS_PER_CELL = 9 + 3 * 10
+STATS_OPS_PER_CELL = 9 + 3 * 6 + 1
 #: (pairs, min length, max length, POA scoring) of the full-DP kernel's
 #: cases: half of each batch mutated copies, half unrelated pairs, and an
 #: 11-pair batch.
@@ -180,8 +210,30 @@ def bound_ms(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def held_geometries(kind, cuda_call, plain_out, W, B, what):
+    """For a small chunk: the kernel under every launch geometry it takes
+    at W (each lane count, memory mode) equals the plain version's
+    output."""
+    import torch
+
+    from ngspeciesid_tpu_torch.ops import cuda_lib
+
+    if B > 8:
+        return
+    for geo in cuda_lib.geometries(kind, W):
+        got = cuda_call(geo)
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain_out if isinstance(plain_out, tuple) else (plain_out,)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{kind} kernel under {geo} differs from "
+                                 f"the plain version: {what}")
+
+
 def phase_stats_kernel(A, dev, cases=STATS_CASES):
-    """Phase 2a: stats kernel rows against the plain version's, bit for bit."""
+    """Phase 2a: stats kernel rows against the plain version's, bit for bit,
+    under the default launch geometry and, for small chunks, under every
+    geometry the kernel takes."""
     import numpy as np
     import torch
 
@@ -189,9 +241,7 @@ def phase_stats_kernel(A, dev, cases=STATS_CASES):
         block_aligned_stats, identity_from_moves, match_vector, sg_align_batch)
 
     rng = np.random.default_rng(0)
-    main_shape = cases[-1]
     max_err = 0
-    timing = None
     for B, lo, hi, k, band in cases:
         seqs, opens, ks, mids = make_pairs(rng, B, lo, hi, k)
         pool = A.SeqPool(dev)
@@ -209,12 +259,19 @@ def phase_stats_kernel(A, dev, cases=STATS_CASES):
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max())
             max_err = max(max_err, err)
+            what = f"B={B} len {lo}-{hi} k={k} band={band} W={W}"
             if not torch.equal(got, want):
                 bad = (got != want).any(1).nonzero().flatten().tolist()
                 raise AssertionError(
-                    f"stats kernel rows differ from the plain version: B={B} "
-                    f"len {lo}-{hi} k={k} band={band} W={W} pairs {bad[:8]}")
-            if band == 0 and B <= 8:
+                    f"stats kernel rows differ from the plain version: "
+                    f"{what} pairs {bad[:8]}")
+            held_geometries(
+                "stats", lambda geo: A._stats_rows_cuda(
+                    pool.buf, pm, base, W, d_max, band, 2, -2, 1, geo=geo),
+                want, W, len(sl), what)
+            # (the oracle's full DP up to 3 kb: at 16.5 kb the plain
+            # version is the spec)
+            if band == 0 and B <= 8 and hi <= 3000:
                 res = A._gather_chunk(
                     got.cpu().numpy(), len1, len2,
                     np.full(len(sl), k, np.int64), np.asarray(cm, np.int64),
@@ -231,55 +288,25 @@ def phase_stats_kernel(A, dev, cases=STATS_CASES):
                             f"stats kernel statistics differ from the numpy "
                             f"oracle (len {lo}-{hi} k={k}): {res[t]} != "
                             f"{want3}")
-            if (B, lo, hi, k, band) == main_shape and sl is chunks[0]:
-                def kern():
-                    A.stats_rows(pool.buf, pm, base, W, d_max, band)
-
-                def plain():
-                    A.stats_rows_plain(pool.buf, pm, base, W, d_max, band)
-
-                ms = time_cuda(kern, 9)
-                plain_ms = time_cuda(plain, 3)
-                # bytes: both sequences, the pair table and the window
-                # schedule in, the endpoint rows out
-                nbytes = (int((len1 + len2).sum()) + pm.numel() * 8
-                          + base.numel() * 4 + len(sl) * 16 * 4)
-                cells = band_cells(A, pm, d_max, band)
-                bound, by = bound_ms(nbytes, cells * STATS_OPS_PER_CELL)
-                timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                              bound_by=by)
-                log(f"stats kernel at the clustering shape ({len(sl)} pairs, "
-                    f"~700 bp, band 150, k 13, W={W}, {d_max} diagonals, "
-                    f"{cells} in-band cells, {nbytes} bytes): kernel {ms} "
-                    f"ms/launch, plain {plain_ms} ms/launch, bound {bound} "
-                    f"ms ({by})")
         log(f"stats kernel == plain: B={B} len {lo}-{hi} k={k} band={band} "
-            f"({len(chunks)} chunk{'s' * (len(chunks) > 1)})")
-    return dict(max_abs_err=max_err, **timing)
+            f"W={W} ({len(chunks)} chunk{'s' * (len(chunks) > 1)}"
+            f"{', every geometry' if B <= 8 else ''})")
+    return max_err
 
 
 def phase_moves_kernel(A, M, dev, cases=MOVES_CASES):
     """Phase 2b: moves kernel rows and op streams against the plain
-    version's, bit for bit, and its time at the polish shape."""
+    version's, bit for bit, under the default launch geometry and, for
+    small chunks, under every geometry the kernel takes."""
     import numpy as np
     import torch
 
     from ngspeciesid_tpu_torch.ops.align import sg_align_batch
     from ngspeciesid_tpu_torch.ops.poa import (
-        POA_BAND, POA_EXT, POA_MATCH, POA_MISMATCH, POA_OPEN)
+        POA_EXT, POA_MATCH, POA_MISMATCH, POA_OPEN)
 
     rng = np.random.default_rng(1)
     max_err = 0
-
-    def run(seqs, r1, r2, opens, band, scoring):
-        pool = A.SeqPool(dev)
-        pool.ensure(seqs)
-        B = len(r1)
-        pm, base, W, d_max, len1, len2 = A.stage_chunk(
-            pool, seqs, r1, r2, opens, [0] * B, [0] * B, band)
-        args = (pool.buf, pm, base, W, d_max, band, *scoring)
-        return args, len1, len2
-
     for B, lo, hi, band, poa in cases:
         seqs, opens, _, _ = make_pairs(rng, B, lo, hi, 13)
         scoring = (POA_MATCH, POA_MISMATCH, POA_EXT) if poa else (2, -2, 1)
@@ -290,19 +317,24 @@ def phase_moves_kernel(A, M, dev, cases=MOVES_CASES):
         for sl in chunks:
             c1, c2 = [r1[i] for i in sl], [r2[i] for i in sl]
             co = [opens[i] for i in sl]
-            args, len1, len2 = run(seqs, c1, c2, co, band, scoring)
+            args, len1, len2 = moves_chunk(A, dev, seqs, c1, c2, co, band,
+                                           scoring)
             best, ops = M.moves_rows(*args)
             p_best, p_ops = M.moves_rows_plain(*args)
             torch.cuda.synchronize()
             err = max(int((best.long() - p_best.long()).abs().max()),
                       int((ops.long() - p_ops.long()).abs().max()))
             max_err = max(max_err, err)
+            what = f"B={B} len {lo}-{hi} band={band} poa={poa} W={args[3]}"
             if not (torch.equal(best, p_best) and torch.equal(ops, p_ops)):
                 bad = ((best != p_best).any(1) | (ops != p_ops).any(1)
                        ).nonzero().flatten().tolist()
                 raise AssertionError(
-                    f"moves kernel differs from the plain version: B={B} "
-                    f"len {lo}-{hi} band={band} poa={poa} pairs {bad[:8]}")
+                    f"moves kernel differs from the plain version: {what} "
+                    f"pairs {bad[:8]}")
+            held_geometries(
+                "moves", lambda geo: M._moves_rows_cuda(*args, geo=geo),
+                (p_best, p_ops), args[3], len(sl), what)
             if band == 0:
                 got = M._reconstruct(best.cpu().numpy(), ops.cpu().numpy(),
                                      len1, len2)
@@ -313,49 +345,162 @@ def phase_moves_kernel(A, M, dev, cases=MOVES_CASES):
                         raise AssertionError(
                             f"moves kernel differs from the numpy oracle: "
                             f"len {lo}-{hi} poa={poa} pair {t}")
-        log(f"moves kernel == plain: B={B} len {lo}-{hi} band={band} "
-            f"{'POA' if poa else 'clustering'} scoring "
-            f"({len(chunks)} chunk{'s' * (len(chunks) > 1)})")
+        log(f"moves kernel == plain: {what} "
+            f"({len(chunks)} chunk{'s' * (len(chunks) > 1)}"
+            f"{', every geometry' if B <= 8 else ''})")
+    return max_err
 
-    # the polish shape: one center against 512 reads, one chunk
-    center, reads = polish_shape(rng)
+
+def moves_chunk(A, dev, seqs, r1, r2, opens, band, scoring):
+    """A moves chunk's kernel arguments on ``dev``, and its lengths."""
+    pool = A.SeqPool(dev)
+    pool.ensure(seqs)
+    B = len(r1)
+    pm, base, W, d_max, len1, len2 = A.stage_chunk(
+        pool, seqs, r1, r2, opens, [0] * B, [0] * B, band)
+    return (pool.buf, pm, base, W, d_max, band, *scoring), len1, len2
+
+
+def stats_shape(A, dev, rng, B, length=700, band=150):
+    """B clustering-shaped pairs (length +- 50 bp, k 13) in one chunk: the
+    stats kernel's arguments on ``dev``, and the lengths."""
+    seqs, opens, ks, mids = make_pairs(rng, B, length - 50, length + 50, 13)
+    pool = A.SeqPool(dev)
+    pool.ensure(seqs)
+    r1, r2 = list(range(0, 2 * B, 2)), list(range(1, 2 * B, 2))
+    assert len(A._plan_chunks(seqs, r1, r2)) == 1
+    pm, base, W, d_max, len1, len2 = A.stage_chunk(
+        pool, seqs, r1, r2, opens, ks, mids, band)
+    return (pool.buf, pm, base, W, d_max, band), len1, len2
+
+
+def moves_shape(A, M, dev, rng, B, length=700, band=150):
+    """One center of ``length`` bp against B reads of length +- 50 bp
+    mutated from it (POA scoring; band 150 is the polish band) in one chunk:
+    the moves kernel's arguments on ``dev``, the center and the read
+    lengths."""
+    from ngspeciesid_tpu_torch.ops.poa import (
+        POA_EXT, POA_MATCH, POA_MISMATCH, POA_OPEN)
+
+    center, reads = polish_shape(rng, B, length)
     seqs = [center] + reads
     r2 = list(range(1, len(seqs)))
-    assert len(M._plan(seqs, [0] * 512, r2)) == 1
-    args, len1, len2 = run(seqs, [0] * 512, r2, [POA_OPEN] * 512, POA_BAND,
-                           (POA_MATCH, POA_MISMATCH, POA_EXT))
-    pool_buf, pm, base, W, d_max = args[:5]
-    best, ops = M.moves_rows(*args)
-    p_best, p_ops = M.moves_rows_plain(*args)
-    if not (torch.equal(best, p_best) and torch.equal(ops, p_ops)):
-        raise AssertionError("moves kernel differs from the plain version at "
-                             "the polish shape")
-    ms = time_cuda(lambda: M.moves_rows(*args), 9)
-    plain_ms = time_cuda(lambda: M.moves_rows_plain(*args), 3)
-    cells = band_cells(A, pm, d_max, POA_BAND)
-    # bytes: the center once and every read, the pair table and the window
-    # schedule in; the endpoint rows and op streams out; and the move store,
-    # one byte per in-band cell, counted once
-    nbytes = (center.size + int(len2.sum()) + pm.numel() * 8
-              + base.numel() * 4 + 512 * 16 * 4 + ops.numel() + cells)
-    bound, by = bound_ms(nbytes, cells * MOVES_OPS_PER_CELL)
-    log(f"moves kernel at the polish shape (512 pairs, 700 bp center, reads "
-        f"650-750 bp, band {POA_BAND}, W={W}, {d_max} diagonals, {cells} "
-        f"in-band cells, {nbytes} bytes): kernel {ms} ms/launch, plain "
-        f"{plain_ms} ms/launch, bound {bound} ms ({by})")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by)
+    assert len(M._plan(seqs, [0] * B, r2)) == 1
+    args, _, len2 = moves_chunk(
+        A, dev, seqs, [0] * B, r2, [POA_OPEN] * B, band,
+        (POA_MATCH, POA_MISMATCH, POA_EXT))
+    return args, center, len2
 
 
-def polish_shape(rng):
-    """One 700 bp center and 512 reads of 650-750 bp mutated from it."""
+def phase_kernel_times(A, M, dev, plain=True):
+    """Phase 2d: each kernel's time per launch (CUDA events, warm median)
+    at its timed shapes, with the moves kernel's forward sweep alone, the
+    plain version's time, after checking them bit-equal there, and the
+    bound; ``plain=False`` times the kernels alone (an older checkout's
+    kernels, through the same public wrappers).  Returns {kind: [one dict
+    per shape]}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    out = {"stats": [], "moves": []}
+    shapes = [("stats", *s) for s in STATS_TIMED] + [("moves", *s)
+                                                    for s in MOVES_TIMED]
+    for kind, B, length, band in shapes:
+        if kind == "stats":
+            args, len1, len2 = stats_shape(A, dev, rng, B, length, band)
+            kern, ref = A.stats_rows, A.stats_rows_plain
+            W, d_max = args[3], args[4]
+            # bytes: both sequences, the pair table and the window
+            # schedule in, the endpoint rows out
+            nbytes = (int((len1 + len2).sum()) + args[1].numel() * 8
+                      + args[2].numel() * 4 + B * 16 * 4)
+            cells = band_cells(A, args[1], d_max, band)
+            ops = cells * STATS_OPS_PER_CELL
+        else:
+            args, center, len2 = moves_shape(A, M, dev, rng, B, length,
+                                             band)
+            kern, ref = M.moves_rows, M.moves_rows_plain
+            W, d_max = args[3], args[4]
+            cells = band_cells(A, args[1], d_max, args[5])
+            # bytes: the center once and every read, the pair table and the
+            # window schedule in; the endpoint rows and op streams out; and
+            # the move store, one byte per in-band cell, counted once
+            nbytes = (center.size + int(len2.sum()) + args[1].numel() * 8
+                      + args[2].numel() * 4 + B * 16 * 4
+                      + B * args[2].numel() + cells)
+            ops = cells * MOVES_OPS_PER_CELL
+        row = dict(pairs=B, length=length, band=args[5], W=W,
+                   diagonals=d_max, cells=cells, bytes=nbytes,
+                   ms=time_cuda(lambda: kern(*args), 9))
+        if plain and kind == "moves":
+            # the forward sweep alone: the rest is the traceback's
+            row["sweep_ms"] = time_cuda(
+                lambda: M._moves_rows_cuda(*args, traceback=False), 9)
+        if plain:
+            got, want = kern(*args), ref(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{kind} kernel differs from the plain "
+                                     f"version at the {B}-pair shape")
+            bound, by = bound_ms(nbytes, ops)
+            row.update(plain_ms=time_cuda(lambda: ref(*args), 3),
+                       bound_ms=bound, bound_by=by)
+        log(f"{kind} kernel at {B} pairs (~{length} bp, band {args[5]}, "
+            f"W={W}, {d_max} diagonals, {cells} in-band cells, {nbytes} "
+            f"bytes): {json.dumps(row)}")
+        out[kind].append(row)
+    return out
+
+
+def phase_geometry_sweep(A, M, dev):
+    """The kernels' time at each timed shape under every register-mode
+    geometry with 1, 2, 4 or 8 pairs per block (CUDA events, warm median):
+    the measurements behind cuda_lib.launch_geometry's rule."""
     import numpy as np
 
-    center = rng.integers(65, 69, size=700).astype(np.uint8)
+    from ngspeciesid_tpu_torch.ops import cuda_lib
+
+    rng = np.random.default_rng(5)
+    for kind, shapes in (("stats", STATS_TIMED), ("moves", MOVES_TIMED)):
+        for B, length, band in shapes:
+            if kind == "stats":
+                args = stats_shape(A, dev, rng, B, length, band)[0]
+                call = A._stats_rows_cuda
+                extra = (2, -2, 1)
+            else:
+                args = moves_shape(A, M, dev, rng, B, length, band)[0]
+                call = M._moves_rows_cuda
+                extra = ()
+            W = args[3]
+            auto = cuda_lib.launch_geometry(kind, W, B,
+                                            cuda_lib.sm_count(dev.index))
+            times = {}
+            for g in cuda_lib.geometries(kind, W):
+                for pairs in ((1,) if g.memory else (1, 2, 4, 8)):
+                    geo = g._replace(pairs=pairs)
+                    if not geo.memory and geo.threads > \
+                            cuda_lib.block_threads(kind, geo.lanes):
+                        continue
+                    times[str(tuple(geo))] = time_cuda(
+                        lambda: call(*args, *extra, geo=geo), 5)
+            log(f"geometry sweep, {kind} at {B} pairs, ~{length} bp, band "
+                f"{args[5]}, W={W} (lanes, warps, pairs, memory): "
+                f"{json.dumps(times)}; default {tuple(auto)}")
+
+
+def polish_shape(rng, n=512, length=700):
+    """One center of ``length`` bp and n reads of length +- 50 bp mutated
+    from it."""
+    import numpy as np
+
+    center = rng.integers(65, 69, size=length).astype(np.uint8)
     reads = []
-    while len(reads) < 512:
+    while len(reads) < n:
         r = mutate(rng, center, 0.07)
-        if 650 <= r.size <= 750:
+        if abs(r.size - length) <= 50:
             reads.append(r)
     return center, reads
 
@@ -589,6 +734,8 @@ def run_backends(A, M, work, pool, args, gru=False):
             raise AssertionError(f"CLI with backend {backend} exited {rc}")
         counts = {"stats": (A.LAUNCHES, A.PAIRS), "moves": (M.LAUNCHES,
                                                            M.PAIRS)}
+        if backend == "cuda":
+            sizes = {"stats": list(A.SIZES), "moves": list(M.SIZES)}
         results[backend] = (counts, dict(asked), dict(polisher.FORWARDS))
         log(f"[{backend}] {' '.join(args)}: wall {wall} s, stage walls "
             f"{json.dumps(walls)}, kernel launches/pairs {json.dumps(counts)}"
@@ -627,7 +774,22 @@ def run_backends(A, M, work, pool, args, gru=False):
             raise AssertionError(
                 f"GRU forwards of the {backend} run: {results[backend][2]}, "
                 f"expected {want}")
-    return {kind: counts[kind][0] for kind in counts}
+    for kind in ("stats", "moves"):
+        log(f"[cuda] {kind} kernel pairs per launch: "
+            f"{json.dumps(histogram(sizes[kind]))}")
+    return {kind: counts[kind][0] for kind in counts}, sizes
+
+
+def histogram(sizes):
+    """Launch sizes in power-of-two bins: {"lo-hi": launches}."""
+    out = {}
+    lo = 1
+    while lo <= max(sizes, default=0):
+        n = sum(lo <= s < 2 * lo for s in sizes)
+        if n:
+            out[f"{lo}-{2 * lo - 1}"] = n
+        lo *= 2
+    return out
 
 
 def phase_gru(A, M, work, pool):
@@ -666,7 +828,7 @@ def phase_gru(A, M, work, pool):
         launches = run_backends(
             A, M, work, pool,
             ["--ont", "--consensus", "--medaka", "--medaka_model", weights,
-             "--abundance_ratio", "0.005"], gru=True)
+             "--abundance_ratio", "0.005"], gru=True)[0]
     finally:
         polisher.forward_logits = real
     feats, gpu = first[0]
@@ -693,7 +855,16 @@ def simulate(out, n_reads, n_species):
         check=True, cwd=HERE, stdout=subprocess.DEVNULL)
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--times-only", action="store_true",
+                    help="build, then time the stats and moves kernels at "
+                         "their shapes (phase 2d without the plain "
+                         "versions) and stop: run from another checkout's "
+                         "root to time its kernels")
+    opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "ngspeciesid_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -706,7 +877,6 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    from ngspeciesid_tpu_torch.ops import align_full as F
     from ngspeciesid_tpu_torch.ops import align_moves as M
     from ngspeciesid_tpu_torch.ops import align_stats as A
     from ngspeciesid_tpu_torch.ops import cuda_lib
@@ -719,23 +889,30 @@ def main():
     log(f"kernel build and load: {time.perf_counter() - t0} s "
         f"(nvcc {cuda_lib.BUILD_SECONDS} s)")
     log(cuda_lib.BUILD_LOG.strip())
-    t0 = time.perf_counter()
-    warm_native()
-    log(f"native engine build and load: {time.perf_counter() - t0} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     log(f"card: {smi.splitlines()[0]}")
+    if opts.times_only:
+        phase_kernel_times(A, M, dev, plain=False)
+        return 0
 
-    stats = phase_stats_kernel(A, dev)
-    moves = phase_moves_kernel(A, M, dev)
+    from ngspeciesid_tpu_torch.ops import align_full as F
+
+    t0 = time.perf_counter()
+    warm_native()
+    log(f"native engine build and load: {time.perf_counter() - t0} s")
+    stats_err = phase_stats_kernel(A, dev)
+    moves_err = phase_moves_kernel(A, M, dev)
     full_launches, full = phase_full_dp_kernel(F, dev)
+    times = phase_kernel_times(A, M, dev)
+    phase_geometry_sweep(A, M, dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         pool20k = os.path.join(work, "pool20k.fastq")
         simulate(pool20k, 20000, 50)
-        launches = run_backends(
+        launches, sizes = run_backends(
             A, M, os.path.join(work, "medaka"), pool20k,
             ["--ont", "--consensus", "--medaka", "--abundance_ratio", "0.005"])
         pool = os.path.join(work, "pool5k.fastq")
@@ -750,15 +927,27 @@ def main():
 
     log(f"chip_smoke wall: {time.perf_counter() - t_start} s")
     log(smi.splitlines()[0])
+
+    def timed(kind):
+        # the first shape (the larger launch) gives the headline numbers;
+        # every shape's numbers stand under "shapes"
+        head = times[kind][0]
+        return dict(ms=head["ms"], plain_ms=head["plain_ms"],
+                    bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                    shapes=times[kind],
+                    launch_sizes=histogram(sizes[kind]))
+
     kernels = [
         dict(name="stats_kernel", route="cuda",
              source="ngspeciesid_tpu_torch/csrc/stats_kernel.cu",
              replaces="ngspeciesid_tpu/ops/align_stats_pallas.py:223",
-             launches=launches["stats"], library_ms=None, **stats),
+             launches=launches["stats"], max_abs_err=stats_err,
+             library_ms=None, **timed("stats")),
         dict(name="moves_kernel", route="cuda",
              source="ngspeciesid_tpu_torch/csrc/moves_kernel.cu",
              replaces="ngspeciesid_tpu/ops/align_moves_pallas.py:75",
-             launches=launches["moves"], library_ms=None, **moves),
+             launches=launches["moves"], max_abs_err=moves_err,
+             library_ms=None, **timed("moves")),
         dict(name="full_dp_kernel", route="cuda",
              source="ngspeciesid_tpu_torch/csrc/full_dp_kernel.cu",
              replaces="ngspeciesid_tpu/ops/align_pallas.py:45",

@@ -9,244 +9,296 @@
 // into ops (B, Dpad) uint8 (DIAG 1, UP 2, LEFT 3; 0 elsewhere).
 // ops/align_moves.py::_reconstruct adds the terminal gaps on the host.
 //
-// What bounds it on an H100: not FLOPs.  A pair is a chain of len1 + len2
-// anti-diagonals, each depending on the two before it, so the forward sweep
-// is latency-bound (one __syncthreads per diagonal, a dozen integer ALU
-// operations per cell), and the traceback is a chain of dependent loads from
-// the move store, which is written once and read back along one path.  The
-// least time is set by bytes: one move byte per in-band cell must reach
+// What bounds it on an H100: not FLOPs.  The forward sweep is a chain of
+// len1 + len2 dependent anti-diagonals per pair (latency-bound); the least
+// time is set by bytes, one move byte per in-band cell that must reach
 // device memory, since the traceback runs after the sweep.
 //
 // Design:
-//   * The forward sweep is the skeleton of stats_kernel.cu with scores only:
-//     one thread block per pair, threads over the W lanes of the pair's
-//     window, rotating per-diagonal buffers for H (3), E (2) and F (2) in
-//     dynamic shared memory (a global scratch slab when 28*W bytes do not
-//     fit; ngsid_moves_scratch_ints says which), and a block stops at its
-//     own pair's last diagonal.  E and F are not masked: they run free
-//     across the window, as on the TPU.  A predecessor outside the previous
-//     window reads as NEG.
-//   * The move store is (B, D+1, W) uint8 in device memory, allocated by
-//     the wrapper: each diagonal writes its W bytes coalesced, for every
-//     lane of the window (not only in-band cells), because the traceback
-//     can follow an E/F chain across the band's edge.  This replaces the
-//     TPU's VMEM store and its 12 MB cap: no chunk falls back.
-//   * The last-row (last-column) cell of a diagonal lies in one lane, whose
-//     thread updates a block tracker in shared memory with ">=" (the later
-//     diagonal wins ties); no cross-lane reduction.
-//   * The TPU extracts the path with a mask pass over lanes per diagonal.
-//     Here, after a __syncthreads, thread 0 walks the path through the
-//     store: the path crosses each anti-diagonal at most once, so the walk
-//     writes the same stream.  It starts at the endpoint in state H
-//     (the row when its score is >= the column's) and stops at i == 0 or
-//     j == 0, or where the predecessor's lane leaves its diagonal's window
-//     (where the TPU's lane shift fills 0); with no endpoint above NEG it
-//     writes nothing.
+//   * The forward sweep is wavefront.cuh's with scores only (H, E, F one
+//     int each): the window's lanes in registers, L = 2, 4 or 8 lanes per
+//     thread, neighbour cells by warp shuffles, no block barrier per
+//     diagonal; memory mode for windows too wide for one block.  E and F
+//     are not masked: they run free across the window, as on the TPU.
+//   * The move store is (B, D+1, W) uint8 in device memory: per diagonal a
+//     thread writes its L move bytes as one L-byte store, for every lane of
+//     the window (not only in-band cells), because the traceback can follow
+//     an E/F chain across the band's edge.  Bits 0-1 hold the H layer, bit
+//     2 "E opens here", bit 3 "F opens here".
+//   * Traceback by the pair's first warp, in batches.  One step back moves
+//     the path's lane by at most one per diagonal, so the 32 diagonals
+//     below the current one lie within +-31 lanes of the current lane: the
+//     warp loads that 32 x 68-byte block of the store into shared memory
+//     (one row per lane, 17 word loads in flight; zero outside the window,
+//     which no move byte is) and the window's shifts of those diagonals as
+//     one ballot, then one thread walks traceback_moves' automaton through
+//     it (state H, E or F; one op per anti-diagonal), tracking the path's
+//     lane from the shifts, with one shared-memory load per step, until the
+//     path leaves the block; the warp loads the next.  ~45 batches per ~700
+//     bp pair instead of ~1,400 dependent single-byte loads from device
+//     memory.  The walk starts at the endpoint (the row when its score is
+//     >= the column's) and stops at i == 0 or j == 0, or where the
+//     predecessor's lane leaves its diagonal's window (a zero byte); with no
+//     endpoint above NEG it writes nothing.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (ops/cuda_lib.py), loaded with ctypes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wavefront.cuh"
 
 namespace {
 
-constexpr int kNeg = -(1 << 30);   // ops/align.py NEG_INF
-constexpr int kBuffers = 7;        // H x3, E x2, F x2
-constexpr int kMaxThreads = 512;
-constexpr int kTrackerBytes = 6 * sizeof(int);  // static shared trk[6]
+using wf::kNeg;
+
 constexpr uint8_t kDiag = 1, kUp = 2, kLeft = 3;
+constexpr int kRows = 32;    // diagonals per traceback batch, one per lane
+constexpr int kWords = 17;   // 4-byte words per batch row: 68 lanes
+constexpr int kStride = kWords * 4;
+constexpr int kTraceBytes = kRows * kStride;
 
-__device__ __forceinline__ int load(const int* buf, int W, int lane) {
-  return (lane < 0 || lane >= W) ? kNeg : buf[lane];
-}
+struct MovesK {
+  using Cell = int;
+  static constexpr int kFields = 1;
+  static constexpr bool kMoves = true;
 
-// pm: (B, 8) int64 rows [len1, len2, gap_open, -, -, off1, off2, -];
-// base: window origin per diagonal; store: (B, D+1, W) uint8;
-// ops: (B, dpad) uint8, zeroed by the caller; best: (B, 16) int32.
-__global__ void moves_kernel(const uint8_t* __restrict__ pool,
-                             const long long* __restrict__ pm,
-                             const int* __restrict__ base,
-                             uint8_t* __restrict__ store,
-                             uint8_t* __restrict__ ops,
-                             int* __restrict__ best, int* scratch, int W,
-                             int D, int dpad, int band, int match,
-                             int mismatch, int gap_ext) {
-  extern __shared__ int smem[];
-  __shared__ int trk[kTrackerBytes / sizeof(int)];  // row s,j,d | col s,i,d
+  int gopen, gap_ext, match, mismatch;
 
-  const int b = blockIdx.x;
-  int* st = scratch ? scratch + static_cast<size_t>(b) * kBuffers * W : smem;
-  const long long* p = pm + static_cast<size_t>(b) * 8;
-  const int len1 = static_cast<int>(p[0]);
-  const int len2 = static_cast<int>(p[1]);
-  const int gopen = static_cast<int>(p[2]);
-  const uint8_t* s1 = pool + p[5];
-  const uint8_t* s2 = pool + p[6];
-  uint8_t* mv = store + static_cast<size_t>(b) * (D + 1) * W;
+  __device__ MovesK(const wf::Launch& a, const wf::Pair& p)
+      : gopen(p.gopen), gap_ext(a.gap_ext), match(a.match),
+        mismatch(a.mismatch) {}
 
-  // diagonal 0 in H slot 0 (only cell (0, 0), score 0), diagonal -1 in
-  // H slot 2, and E/F of diagonal 0 in slot 0: all unreachable otherwise
-  for (int l = threadIdx.x; l < W; l += blockDim.x) {
-    for (int buf = 0; buf < kBuffers; ++buf) {
-      st[buf * W + l] = (buf == 0 && l == 0) ? 0 : kNeg;
-    }
+  __device__ static Cell neg(int) { return kNeg; }
+  __device__ static Cell origin() { return 0; }
+  __device__ static int score(const Cell& c) { return c; }
+  __device__ static Cell from_right(const Cell& c) {
+    return __shfl_down_sync(wf::kFull, c, 1);
   }
-  if (threadIdx.x < 6) trk[threadIdx.x] = threadIdx.x % 3 == 0 ? kNeg : -1;
-  __syncthreads();
-
-  const int last = len1 + len2;
-  for (int dd = 1; dd <= last; ++dd) {
-    const int bs = base[dd];
-    const int d1 = bs - base[dd - 1];
-    const int d2 = bs - base[dd >= 2 ? dd - 2 : 0];
-    int* Hc = st + (dd % 3) * W;
-    const int* H1 = st + ((dd + 2) % 3) * W;
-    const int* H2 = st + ((dd + 1) % 3) * W;
-    int* Ec = st + (3 + (dd & 1)) * W;
-    const int* E1 = st + (3 + ((dd + 1) & 1)) * W;
-    int* Fc = st + (5 + (dd & 1)) * W;
-    const int* F1 = st + (5 + ((dd + 1) & 1)) * W;
-    uint8_t* mrow = mv + static_cast<size_t>(dd) * W;
-
-    for (int l = threadIdx.x; l < W; l += blockDim.x) {
-      const int i = bs + l;
-      const int j = dd - i;
-      const bool in1 = i >= 1 && i <= len1;
-      const bool in2 = j >= 1 && j <= len2;
-      bool interior = in1 && in2;
-      if (band > 0) {
-        const long long li = i, lj = j;
-        interior = interior && (lj - band) * len1 <= li * len2 &&
-                   li * len2 <= (lj + band + 1) * len1 - 1;
-      }
-      const bool boundary =
-          (i == 0 && j >= 0 && j <= len2) || (j == 0 && i <= len1);
-      const bool valid = interior || boundary;
-
-      // E: gap in s1 (left), predecessor (i, j-1) on diagonal d-1
-      const int e_open = load(H1, W, l + d1) - gopen;
-      const int e_ext = load(E1, W, l + d1) - gap_ext;
-      const int e = max(e_open, e_ext);
-      // F: gap in s2 (up), predecessor (i-1, j) on diagonal d-1
-      const int f_open = load(H1, W, l + d1 - 1) - gopen;
-      const int f_ext = load(F1, W, l + d1 - 1) - gap_ext;
-      const int f = max(f_open, f_ext);
-      // diagonal: (i-1, j-1) on diagonal d-2 plus the substitution score
-      const bool ismatch = in1 && in2 && s1[i - 1] == s2[j - 1];
-      const int g = load(H2, W, l + d2 - 1) + (ismatch ? match : mismatch);
-
-      // H: the traceback's tie-break, diag > up > left
-      const int h_no_e = max(g, f);
-      const uint8_t layer = e > h_no_e ? kLeft : (f > g ? kUp : kDiag);
-      int h = max(h_no_e, e);
-      if (boundary) h = 0;
-      if (!valid) h = kNeg;
-
-      Hc[l] = h;
-      Ec[l] = e;
-      Fc[l] = f;
-      mrow[l] = layer | static_cast<uint8_t>((e_open >= e_ext) << 2) |
-                static_cast<uint8_t>((f_open >= f_ext) << 3);
-      if (valid && i == len1 && h >= trk[0]) {
-        trk[0] = h;
-        trk[1] = j;
-        trk[2] = dd;
-      }
-      if (valid && j == len2 && h >= trk[3]) {
-        trk[3] = h;
-        trk[4] = i;
-        trk[5] = dd;
-      }
-    }
-    __syncthreads();
+  __device__ static Cell from_left(const Cell& c) {
+    return __shfl_up_sync(wf::kFull, c, 1);
+  }
+  __device__ static Cell load(const int* buf, int W, int l, int) {
+    return (l < 0 || l >= W) ? kNeg : buf[l];
+  }
+  __device__ static void store(int* buf, int, int l, const Cell& c) {
+    buf[l] = c;
   }
 
-  if (threadIdx.x < 16) {
-    const int c = threadIdx.x;
-    best[static_cast<size_t>(b) * 16 + c] =
-        c < 3 ? trk[c] : (c >= 8 && c < 11 ? trk[c - 5] : 0);
-  }
-  if (threadIdx.x != 0) return;
+  __device__ int diag_ctx(int) const { return 0; }
 
-  // traceback: the automaton of ops/align.py::traceback_moves, one op per
-  // anti-diagonal (state 0 H, 1 E, 2 F)
-  const bool use_row = trk[0] >= trk[3];
-  if ((use_row ? trk[0] : trk[3]) <= kNeg) return;
-  int i = use_row ? len1 : trk[4];
-  int j = use_row ? trk[1] : len2;
-  int state = 0;
-  uint8_t* out = ops + static_cast<size_t>(b) * dpad;
-  while (i >= 1 && j >= 1) {
-    const int dd = i + j;
-    const int lane = i - base[dd];
-    if (lane < 0 || lane >= W) break;
-    const uint8_t m = mv[static_cast<size_t>(dd) * W + lane];
-    if (state == 0) {
-      const uint8_t layer = m & 3;
-      if (layer == kDiag) {
-        out[dd] = kDiag;
-        --i;
-        --j;
-        continue;
-      }
-      state = layer == kLeft ? 1 : 2;
-    }
-    if (state == 1) {
-      out[dd] = kLeft;
-      --j;
-      if (m & 4) state = 0;
+  __device__ void cell(const Cell& hl, const Cell& el, const Cell& hu,
+                       const Cell& fu, const Cell& g2, bool ismatch,
+                       bool valid, int, Cell& h, Cell& e, Cell& f,
+                       unsigned& mv) const {
+    const int e_open = hl - gopen;
+    const int e_ext = el - gap_ext;
+    e = max(e_open, e_ext);
+    const int f_open = hu - gopen;
+    const int f_ext = fu - gap_ext;
+    f = max(f_open, f_ext);
+    const int g = g2 + (ismatch ? match : mismatch);
+    // H: the traceback's tie-break, diag > up > left
+    const int h_no_e = max(g, f);
+    const unsigned layer = e > h_no_e ? kLeft : (f > g ? kUp : kDiag);
+    h = valid ? max(h_no_e, e) : kNeg;
+    mv = layer | (static_cast<unsigned>(e_open >= e_ext) << 2) |
+         (static_cast<unsigned>(f_open >= f_ext) << 3);
+  }
+
+  __device__ static Cell boundary(int) { return 0; }
+
+  // the move bytes of lanes [lane0, lane0 + L) of diagonal dd, one store
+  // of L bytes
+  template <int L>
+  __device__ void store_moves(const wf::Launch& a, const wf::Pair& p, int dd,
+                              int lane0, const unsigned* mv) const {
+    uint8_t* row = a.store +
+                   (static_cast<size_t>(p.b) * (a.dmax + 1) + dd) * a.W +
+                   lane0;
+    if constexpr (L == 1) {
+      *row = static_cast<uint8_t>(mv[0]);
+    } else if constexpr (L == 2) {
+      *reinterpret_cast<uint16_t*>(row) =
+          static_cast<uint16_t>(mv[0] | (mv[1] << 8));
     } else {
-      out[dd] = kUp;
-      --i;
-      if (m & 8) state = 0;
+      unsigned w[L / 4];
+#pragma unroll
+      for (int x = 0; x < L / 4; ++x) {
+        w[x] = mv[4 * x] | (mv[4 * x + 1] << 8) | (mv[4 * x + 2] << 16) |
+               (mv[4 * x + 3] << 24);
+      }
+      if constexpr (L == 4) {
+        *reinterpret_cast<unsigned*>(row) = w[0];
+      } else {
+        *reinterpret_cast<uint2*>(row) = make_uint2(w[0], w[1]);
+      }
     }
   }
-}
+
+  __device__ void finish(const wf::Launch& a, const wf::Pair& p,
+                         unsigned long long krow, unsigned long long kcol,
+                         const wf::Track<Cell>&, const wf::Track<Cell>&,
+                         int w, int lane, uint8_t* seg) const {
+    // trackers [score, coord, diagonal]: (NEG, -1, -1) without a candidate
+    const int rs = krow ? wf::key_score(krow) : kNeg;
+    const int rd = krow ? wf::key_diag(krow) : -1;
+    const int rj = krow ? rd - p.len1 : -1;
+    const int cs = kcol ? wf::key_score(kcol) : kNeg;
+    const int cd = kcol ? wf::key_diag(kcol) : -1;
+    const int ci = kcol ? cd - p.len2 : -1;
+    if (p.tp < 16) {
+      const int c = p.tp;
+      a.out[static_cast<size_t>(p.b) * 16 + c] =
+          c == 0 ? rs : c == 1 ? rj : c == 2 ? rd
+          : c == 8 ? cs : c == 9 ? ci : c == 10 ? cd : 0;
+    }
+    if (w != 0 || !a.trace) return;
+    const bool use_row = rs >= cs;
+    if ((use_row ? rs : cs) <= kNeg) return;
+    traceback(a, p, lane, use_row ? p.len1 : ci, use_row ? rj : p.len2,
+              seg);
+  }
+
+  // The automaton of ops/align.py::traceback_moves, one op per
+  // anti-diagonal (state 0 H, 1 E, 2 F), run by the pair's first warp.
+  // Batch: lane r loads row d0 - r of the store, the 68 lanes from the
+  // aligned word at or below l - 32 (l the path's lane on d0), as 17 word
+  // loads in flight together, and the shifts base[d] - base[d-1] of
+  // diagonals d0 - r and d0 - r - 32; lane 0 then walks up to 32 diagonals
+  // through the block.  A step to diagonal e - 1 or e - 2 moves the lane by
+  // the shifts of the diagonals it leaves, minus one if the row drops.
+  __device__ __forceinline__ static void traceback(const wf::Launch& a,
+                                                   const wf::Pair& p,
+                                                   int lane, int i, int j,
+                                                   uint8_t* seg) {
+    uint8_t* blk = seg;   // [kRows][kStride]
+    const int W = a.W;
+    const uint8_t* mv = a.store + static_cast<size_t>(p.b) * (a.dmax + 1) * W;
+    uint8_t* out = a.ops + static_cast<size_t>(p.b) * a.dpad;
+    if (i < 1 || j < 1) return;
+    int l = i - __ldg(a.base + i + j);   // the path's lane on its diagonal
+    int state = 0;
+    while (true) {
+      const int d0 = i + j;
+      // the block's first lane: word-aligned (W is a multiple of 4, so a
+      // word lies wholly inside or outside the window)
+      const int a0 = (l - 32) & ~3;
+      const int dd = d0 - lane;
+      unsigned words[kWords];
+#pragma unroll
+      for (int x = 0; x < kWords; ++x) {
+        const int c = a0 + 4 * x;
+        words[x] = (dd >= 0 && c >= 0 && c < W)
+                       ? *reinterpret_cast<const unsigned*>(
+                             mv + static_cast<size_t>(dd) * W + c)
+                       : 0u;
+      }
+      const int e2 = dd - 32;
+      const bool s1 = dd >= 1 && __ldg(a.base + dd) != __ldg(a.base + dd - 1);
+      const bool s2 = e2 >= 1 && __ldg(a.base + e2) != __ldg(a.base + e2 - 1);
+      unsigned* row = reinterpret_cast<unsigned*>(blk + lane * kStride);
+#pragma unroll
+      for (int x = 0; x < kWords; ++x) row[x] = words[x];
+      const unsigned long long bits =
+          (static_cast<unsigned long long>(__ballot_sync(wf::kFull, s2))
+           << 32) | __ballot_sync(wf::kFull, s1);
+      __syncwarp();
+      int stop = 0;
+      if (lane == 0) {
+        while (true) {
+          const int e = i + j;
+          const int r = d0 - e;
+          if (r >= kRows) break;
+          if (i < 1 || j < 1) {
+            stop = 1;
+            break;
+          }
+          // |l - (first l)| <= r <= 31 and first l - 35 <= a0 <= first
+          // l - 32, so the byte lies inside the block's row
+          const uint8_t m = blk[r * kStride + (l - a0)];
+          if (m == 0) {   // outside the diagonal's window
+            stop = 1;
+            break;
+          }
+          const int sh = static_cast<int>(bits >> r) & 1;
+          if (state == 0) {
+            const int layer = m & 3;
+            if (layer == kDiag) {
+              out[e] = kDiag;
+              --i;
+              --j;
+              l += sh + (static_cast<int>(bits >> (r + 1)) & 1) - 1;
+              continue;
+            }
+            state = layer == kLeft ? 1 : 2;
+          }
+          if (state == 1) {
+            out[e] = kLeft;
+            --j;
+            l += sh;
+            if (m & 4) state = 0;
+          } else {
+            out[e] = kUp;
+            --i;
+            l += sh - 1;
+            if (m & 8) state = 0;
+          }
+        }
+      }
+      i = __shfl_sync(wf::kFull, i, 0);
+      j = __shfl_sync(wf::kFull, j, 0);
+      l = __shfl_sync(wf::kFull, l, 0);
+      state = __shfl_sync(wf::kFull, state, 0);
+      stop = __shfl_sync(wf::kFull, stop, 0);
+      __syncwarp();
+      if (stop) break;
+    }
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-// Sets *ints to 0 when one block's DP state at window width W fits in the
-// shared memory of `device`, else to the int32 count of global scratch each
-// block needs.  Returns the CUDA error code of the device query.
-int ngsid_moves_scratch_ints(int W, int device, int* ints) {
-  int limit = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long state = static_cast<long long>(kBuffers) * W;
-  const long long bytes =
-      state * static_cast<long long>(sizeof(int)) + kTrackerBytes;
-  *ints = bytes <= limit ? 0 : static_cast<int>(state);
-  return 0;
+// int32 of global scratch one pair needs in memory mode at window width W.
+int ngsid_moves_state_ints(int W) {
+  return wf::kBuffers * MovesK::kFields * W;
 }
 
-// Launches one block per pair on `stream`.  `store` holds B * (D + 1) * W
-// bytes, where D >= max(len1 + len2); `ops` holds B * dpad zeroed bytes.
-// With scratch == nullptr the DP state lives in dynamic shared memory;
-// otherwise `scratch` holds B blocks of ngsid_moves_scratch_ints(W) int32.
-// Returns cudaGetLastError() after the launch.
+// Launches the moves DP and traceback of B pairs on `stream`: lanes per
+// thread (2, 4 or 8; memory == 0) or memory mode (memory == 1, lanes 1,
+// warps 8, pairs 1, scratch of B * ngsid_moves_state_ints(W) int32),
+// `warps` warps per pair and `pairs` pairs per block
+// (ops/cuda_lib.py::launch_geometry).  `store` holds B * (d_max + 1) * W
+// bytes, where d_max >= max(len1 + len2); `ops` holds B * dpad zeroed
+// bytes.  trace == 0 skips the traceback (ops stay zero): the forward
+// sweep's time alone.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a geometry the kernel does not take.
 int ngsid_moves_launch(const void* pool, const void* pm, const void* base,
                        void* store, void* ops, void* best, void* scratch,
-                       int B, int W, int D, int dpad, int band, int match,
-                       int mismatch, int gap_ext, void* stream) {
-  if (B <= 0) return 0;
-  const int smem_bytes =
-      scratch ? 0 : static_cast<int>(kBuffers * W * sizeof(int));
-  if (smem_bytes > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        moves_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = W < kMaxThreads ? W : kMaxThreads;
-  moves_kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(pool), static_cast<const long long*>(pm),
-      static_cast<const int*>(base), static_cast<uint8_t*>(store),
-      static_cast<uint8_t*>(ops), static_cast<int*>(best),
-      static_cast<int*>(scratch), W, D, dpad, band, match, mismatch, gap_ext);
-  return static_cast<int>(cudaGetLastError());
+                       int B, int W, int d_max, int dpad, int band, int match,
+                       int mismatch, int gap_ext, int lanes, int warps,
+                       int pairs, int memory, int trace, void* stream) {
+  wf::Launch a{};
+  a.pool = static_cast<const uint8_t*>(pool);
+  a.pm = static_cast<const long long*>(pm);
+  a.base = static_cast<const int*>(base);
+  a.out = static_cast<int*>(best);
+  a.store = static_cast<uint8_t*>(store);
+  a.ops = static_cast<uint8_t*>(ops);
+  a.scratch = static_cast<int*>(scratch);
+  a.B = B;
+  a.W = W;
+  a.dmax = d_max;
+  a.dpad = dpad;
+  a.band = band;
+  a.match = match;
+  a.mismatch = mismatch;
+  a.gap_ext = gap_ext;
+  a.nw = warps;
+  a.pairs = pairs;
+  a.trace = trace;
+  return wf::launch<MovesK, 2, 4, 8>(a, lanes, memory, kTraceBytes,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

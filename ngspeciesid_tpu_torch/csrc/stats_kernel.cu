@@ -7,250 +7,274 @@
 // diagonal] that ops/align_stats.py::_gather_chunk turns into the
 // aligned-region ratios and the column identity.
 //
-// What bounds it on an H100: not memory and not FLOPs.  A pair is a chain of
-// len1 + len2 anti-diagonals, each depending on the two before it, so the
-// kernel is latency-bound: one __syncthreads per diagonal, a few dozen
-// integer ALU operations per cell, and a few bytes of state traffic per cell
-// (5 int32 fields x 3 layers, read from shared memory, written once).
-// Nothing is reused across pairs, so there is nothing for tensor cores, TMA
-// or L2 blocking to do.
+// What bounds it on an H100: the instructions each thread issues per
+// anti-diagonal, over a chain of len1 + len2 dependent diagonals per pair;
+// at 4096 pairs the SMs' issue rate of the ~50 integer operations per cell.
+// Not memory (a few bytes per pair in and out) and nothing for tensor
+// cores.  The sweep is wavefront.cuh's: the window's lanes in registers,
+// L = 2 or 4 lanes per thread, one or a few warps per pair, neighbour cells
+// by warp shuffles, no block barrier per diagonal; windows too wide for one
+// block's registers run the same recurrence from a global scratch slab
+// (memory mode).
 //
-// Design:
-//   * One thread block per pair, threads over the W lanes of the pair's
-//     window (strided loop when W > blockDim).  Many pairs per launch (up to
-//     4096) keep every SM busy while each block walks its own diagonals:
-//     this replaces the TPU grid's sequential diagonal axis, and a block
-//     stops at its own pair's last diagonal (the TPU's tile skip).
-//   * Lane l of diagonal d holds cell (i, j) = (base[d] + l, d - i); base is
-//     the host window schedule shared by the chunk.  The TPU's lane rolls
-//     (_shift_lanes) become address arithmetic: the predecessor of row i on
-//     diagonal d-1 sits at lane l + (base[d] - base[d-1]).  A predecessor
-//     outside the previous window reads (NEG_INF, 0, 0, 0, 0), as on the TPU.
-//   * State lives in rotating per-diagonal buffers (H for d, d-1, d-2; E and
-//     F for d, d-1), in dynamic shared memory when 140*W bytes fit the
-//     device, else in a global scratch slab the wrapper allocates (band 0 on
-//     long reads; ngsid_stats_scratch_ints says which).
-//   * wsum is not stored: it always equals popcount(hist) (both start at 0,
-//     and every push shifts one bit out of and one bit into the k-bit
-//     window), so five fields carry the six of the TPU kernel.
-//   * The last-row (last-column) cell of a diagonal lies in exactly one lane,
-//     so that lane's thread updates a block-level tracker in shared memory
-//     with ">=" (the later diagonal wins ties); no cross-lane reduction.
-//     The final pick (max score, then max diagonal) falls out of the order.
-//   * Scores stay int32 and E/F are not clamped, as in the TPU's int32 path.
+// The cell: H, E and F each carry a score and the path fields hist (last-k
+// match bits), wcount (windows with >= match_id matches), mcount (matches)
+// and the path's diagonal steps nd.  The TPU kernel's colcount (alignment
+// columns, leading gaps included) is d - nd for a cell on diagonal d: a
+// diagonal step adds one column over two diagonals, a gap step one over
+// one, and a boundary cell (i + j = d leading gaps) has nd = 0; the
+// unreachable cell of diagonal d, (NEG, 0, 0, 0, colcount 0), has nd = d.
+// So a gap push leaves mcount and nd alone, and chunks with d_max < 32768
+// pack them into one word, nd << 16 | mcount.  The TPU kernel's wsum is
+// popcount(hist) (both start at 0, and every push shifts one bit out of and
+// one into the k-bit window).  Scores stay int32 and E/F are not clamped,
+// as in the TPU's int32 path.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (ops/cuda_lib.py), loaded with ctypes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wavefront.cuh"
 
 namespace {
 
-constexpr int kNeg = -(1 << 30);   // ops/align.py NEG_INF
-constexpr int kFields = 5;         // score, hist, wcount, mcount, colcount
-constexpr int kBuffers = 7;        // H x3, E x2, F x2
-constexpr int kMaxThreads = 512;
-constexpr int kTrackerBytes = 16 * sizeof(int);  // static shared trk[16]
+using wf::kNeg;
 
-struct Cell {
-  int s, h, wc, mc, cc;
+// mcount and nd of a path: packed (nd << 16 | mcount; nd < 32768 and
+// mcount < 65536) or apart.
+template <bool kPacked>
+struct Steps;
+
+template <>
+struct Steps<true> {
+  int md;
+  __device__ static Steps make(int mc, int nd) { return Steps{nd * 65536 + mc}; }
+  __device__ int mc() const { return md & 0xffff; }
+  __device__ int nd() const { return md >> 16; }
+  __device__ void diagonal(int bit) { md += 65536 + bit; }
+  // "colcount >= k" on diagonal dd: nd < dd - k + 1
+  __device__ static int limit(int dd, int k) { return (dd - k + 1) * 65536; }
+  __device__ bool cols_ok(int lim) const { return md < lim; }
+  template <class F>
+  __device__ Steps map(F f) const { return Steps{f(md)}; }
+  __device__ Steps pick(bool c, const Steps& o) const {
+    return Steps{c ? md : o.md};
+  }
+  __device__ static Steps load(const int* buf, int W, int l) {
+    return Steps{buf[3 * W + l]};
+  }
+  __device__ void store(int* buf, int W, int l) const { buf[3 * W + l] = md; }
+  static constexpr int kInts = 1;
 };
 
-// Field f of lane l of a buffer sits at buf[f * W + l].
-__device__ __forceinline__ Cell load_cell(const int* buf, int W, int lane) {
-  if (lane < 0 || lane >= W) return Cell{kNeg, 0, 0, 0, 0};
-  return Cell{buf[lane], buf[W + lane], buf[2 * W + lane], buf[3 * W + lane],
-              buf[4 * W + lane]};
-}
-
-__device__ __forceinline__ void store_cell(int* buf, int W, int lane,
-                                           const Cell& c) {
-  buf[lane] = c.s;
-  buf[W + lane] = c.h;
-  buf[2 * W + lane] = c.wc;
-  buf[3 * W + lane] = c.mc;
-  buf[4 * W + lane] = c.cc;
-}
-
-// One alignment column with match bit `bit` (_push_column): shift the k-bit
-// match history, count the window if it holds >= mid matches.
-__device__ __forceinline__ Cell push(Cell c, int bit, int k, int mid,
-                                     unsigned mask) {
-  const unsigned h2 = ((static_cast<unsigned>(c.h) << 1) | bit) & mask;
-  c.h = static_cast<int>(h2);
-  c.cc += 1;
-  c.wc += (c.cc >= k && __popc(h2) >= mid) ? 1 : 0;
-  c.mc += bit;
-  return c;
-}
-
-// Tracker payload: [score, coord, hist, wsum, wcount, mcount, colcount, d].
-__device__ __forceinline__ void track(int* trk, const Cell& c, int coord,
-                                      int dd) {
-  if (c.s >= trk[0]) {
-    trk[0] = c.s;
-    trk[1] = coord;
-    trk[2] = c.h;
-    trk[3] = __popc(static_cast<unsigned>(c.h));
-    trk[4] = c.wc;
-    trk[5] = c.mc;
-    trk[6] = c.cc;
-    trk[7] = dd;
+template <>
+struct Steps<false> {
+  int m, n;
+  __device__ static Steps make(int mc, int nd) { return Steps{mc, nd}; }
+  __device__ int mc() const { return m; }
+  __device__ int nd() const { return n; }
+  __device__ void diagonal(int bit) {
+    m += bit;
+    n += 1;
   }
-}
-
-// pm: (B, 8) int64 rows [len1, len2, gap_open, k, match_id, off1, off2, 0];
-// base: window origin per diagonal; out: (B, 16) int32.
-__global__ void stats_kernel(const uint8_t* __restrict__ pool,
-                             const long long* __restrict__ pm,
-                             const int* __restrict__ base,
-                             int* __restrict__ out, int* scratch, int W,
-                             int band, int match, int mismatch, int gap_ext) {
-  extern __shared__ int smem[];
-  __shared__ int trk[kTrackerBytes / sizeof(int)];  // row [0, 8), column [8, 16)
-
-  const int b = blockIdx.x;
-  const int stride = kFields * W;
-  int* st = scratch ? scratch + static_cast<size_t>(b) * kBuffers * stride
-                    : smem;
-  const long long* p = pm + static_cast<size_t>(b) * 8;
-  const int len1 = static_cast<int>(p[0]);
-  const int len2 = static_cast<int>(p[1]);
-  const int gopen = static_cast<int>(p[2]);
-  const int k = static_cast<int>(p[3]);
-  const int mid = static_cast<int>(p[4]);
-  const uint8_t* s1 = pool + p[5];
-  const uint8_t* s2 = pool + p[6];
-  const unsigned mask = (1u << k) - 1u;
-  const int wc_boundary_on = mid <= 0;
-
-  // diagonal 0 in H slot 0 (only cell (0, 0), score 0), diagonal -1 in
-  // H slot 2, and E/F of diagonal 0 in slot 0: all unreachable otherwise
-  for (int l = threadIdx.x; l < W; l += blockDim.x) {
-    for (int buf = 0; buf < kBuffers; ++buf) {
-      store_cell(st + buf * stride, W, l,
-                 Cell{(buf == 0 && l == 0) ? 0 : kNeg, 0, 0, 0, 0});
-    }
+  __device__ static int limit(int dd, int k) { return dd - k + 1; }
+  __device__ bool cols_ok(int lim) const { return n < lim; }
+  template <class F>
+  __device__ Steps map(F f) const { return Steps{f(m), f(n)}; }
+  __device__ Steps pick(bool c, const Steps& o) const {
+    return Steps{c ? m : o.m, c ? n : o.n};
   }
-  if (threadIdx.x < 16) {
-    const int f = threadIdx.x & 7;
-    trk[threadIdx.x] = f == 0 ? kNeg : (f == 1 ? -1 : 0);
+  __device__ static Steps load(const int* buf, int W, int l) {
+    return Steps{buf[3 * W + l], buf[4 * W + l]};
   }
-  __syncthreads();
+  __device__ void store(int* buf, int W, int l) const {
+    buf[3 * W + l] = m;
+    buf[4 * W + l] = n;
+  }
+  static constexpr int kInts = 2;
+};
 
-  const int D = len1 + len2;
-  for (int dd = 1; dd <= D; ++dd) {
-    const int bs = base[dd];
-    const int d1 = bs - base[dd - 1];
-    const int d2 = bs - base[dd >= 2 ? dd - 2 : 0];
-    int* Hc = st + (dd % 3) * stride;
-    const int* H1 = st + ((dd + 2) % 3) * stride;
-    const int* H2 = st + ((dd + 1) % 3) * stride;
-    int* Ec = st + (3 + (dd & 1)) * stride;
-    const int* E1 = st + (3 + ((dd + 1) & 1)) * stride;
-    int* Fc = st + (5 + (dd & 1)) * stride;
-    const int* F1 = st + (5 + ((dd + 1) & 1)) * stride;
+template <bool kPacked>
+struct StatsCell {
+  int s, h, wc;
+  Steps<kPacked> st;
+};
 
-    for (int l = threadIdx.x; l < W; l += blockDim.x) {
-      const int i = bs + l;
-      const int j = dd - i;
-      const bool in1 = i >= 1 && i <= len1;
-      const bool in2 = j >= 1 && j <= len2;
-      bool interior = in1 && in2;
-      if (band > 0) {
-        interior = interior && (j - band) * len1 <= i * len2 &&
-                   i * len2 <= (j + band + 1) * len1 - 1;
+template <bool kPacked>
+struct StatsK {
+  using Cell = StatsCell<kPacked>;
+  using St = Steps<kPacked>;
+  static constexpr int kFields = 3 + St::kInts;
+  static constexpr bool kMoves = false;
+
+  int gopen, gap_ext, match, mismatch, k, mid;
+  unsigned one;  // the newest hist bit: hist is kept in the top k bits
+  bool wc_on;    // a leading gap column counts as a window (match_id <= 0)
+
+  __device__ StatsK(const wf::Launch& a, const wf::Pair& p)
+      : gopen(p.gopen), gap_ext(a.gap_ext), match(a.match),
+        mismatch(a.mismatch), k(p.k), mid(p.mid),
+        one(1u << (32 - p.k)), wc_on(p.mid <= 0) {}
+
+  // the unreachable cell of diagonal dd: colcount 0
+  __device__ static Cell neg(int dd) {
+    return Cell{kNeg, 0, 0, St::make(0, dd)};
+  }
+  __device__ static Cell origin() { return Cell{0, 0, 0, St::make(0, 0)}; }
+  __device__ static int score(const Cell& c) { return c.s; }
+
+  // the cell of lane + 1 (from_right) or lane - 1 (from_left) of the warp
+  __device__ static Cell from_right(const Cell& c) {
+    auto f = [](int v) { return __shfl_down_sync(wf::kFull, v, 1); };
+    return Cell{f(c.s), f(c.h), f(c.wc), c.st.map(f)};
+  }
+  __device__ static Cell from_left(const Cell& c) {
+    auto f = [](int v) { return __shfl_up_sync(wf::kFull, v, 1); };
+    return Cell{f(c.s), f(c.h), f(c.wc), c.st.map(f)};
+  }
+
+  // memory mode: field f of lane l at buf[f * W + l]; outside the window
+  // a predecessor of diagonal dd is neg(dd)
+  __device__ static Cell load(const int* buf, int W, int l, int dd) {
+    if (l < 0 || l >= W) return neg(dd);
+    return Cell{buf[l], buf[W + l], buf[2 * W + l], St::load(buf, W, l)};
+  }
+  __device__ static void store(int* buf, int W, int l, const Cell& c) {
+    buf[l] = c.s;
+    buf[W + l] = c.h;
+    buf[2 * W + l] = c.wc;
+    c.st.store(buf, W, l);
+  }
+
+  __device__ int diag_ctx(int dd) const { return St::limit(dd, k); }
+
+  // One alignment column with match bit `bit` (_push_column): shift the
+  // k-bit match history (bits 32-k..31 of h, so the oldest bit falls off
+  // the top), count the window if the path has >= k columns (`lim`,
+  // diag_ctx of the cell's diagonal) and >= mid matches in it.
+  __device__ void push(Cell& c, bool bit, int lim) const {
+    const unsigned h2 = (static_cast<unsigned>(c.h) << 1) + (bit ? one : 0u);
+    c.h = static_cast<int>(h2);
+    c.wc += (c.st.cols_ok(lim) && __popc(h2) >= mid) ? 1 : 0;
+  }
+
+  __device__ static Cell pick(bool cond, const Cell& a, const Cell& b) {
+    return Cell{cond ? a.s : b.s, cond ? a.h : b.h, cond ? a.wc : b.wc,
+                a.st.pick(cond, b.st)};
+  }
+
+  // The cell from its predecessors: (i, j-1) as hl/el, (i-1, j) as hu/fu,
+  // (i-1, j-1) as g2; the traceback's tie-breaks (diag > up > left, a gap
+  // opens on >=) pick whose path statistics it carries.  Outside the band
+  // H's score is NEG and its path fields stay as computed.
+  __device__ void cell(const Cell& hl, const Cell& el, const Cell& hu,
+                       const Cell& fu, const Cell& g2, bool ismatch,
+                       bool valid, int lim, Cell& h, Cell& e, Cell& f,
+                       unsigned& mv) const {
+    const int e_open = hl.s - gopen;
+    const int e_ext = el.s - gap_ext;
+    e = pick(e_open >= e_ext, hl, el);
+    e.s = max(e_open, e_ext);
+    push(e, false, lim);
+    const int f_open = hu.s - gopen;
+    const int f_ext = fu.s - gap_ext;
+    f = pick(f_open >= f_ext, hu, fu);
+    f.s = max(f_open, f_ext);
+    push(f, false, lim);
+    Cell g = g2;
+    g.s += ismatch ? match : mismatch;
+    g.st.diagonal(ismatch ? 1 : 0);
+    push(g, ismatch, lim);
+    const int h_no_e = max(g.s, f.s);
+    h = pick(e.s > h_no_e, e, pick(f.s > g.s, f, g));
+    if (!valid) h.s = kNeg;
+    mv = 0;
+  }
+
+  // A boundary cell (i == 0 or j == 0) restarts the path: i + j = dd
+  // leading gap columns.
+  __device__ Cell boundary(int dd) const {
+    return Cell{0, 0, wc_on ? max(dd - k + 1, 0) : 0, St::make(0, 0)};
+  }
+
+  // The pair's row: the tracker whose (score, diagonal) is the pair's
+  // maximum writes its payload; with no candidate thread 0 writes the
+  // initial tracker (NEG, -1, 0, ...).
+  __device__ void finish(const wf::Launch& a, const wf::Pair& p,
+                         unsigned long long krow, unsigned long long kcol,
+                         const wf::Track<Cell>& row,
+                         const wf::Track<Cell>& col, int, int,
+                         uint8_t*) const {
+    int* o = a.out + static_cast<size_t>(p.b) * 16;
+    write(o, row, krow, p.len1, p.tp, k);
+    write(o + 8, col, kcol, p.len2, p.tp, k);
+  }
+
+  __device__ static void write(int* o, const wf::Track<Cell>& t,
+                               unsigned long long best, int len, int tp,
+                               int k) {
+    if (best == 0ull) {
+      if (tp == 0) {
+        o[0] = kNeg;
+        o[1] = -1;
+        for (int f = 2; f < 8; ++f) o[f] = 0;
       }
-      const bool boundary =
-          (i == 0 && j >= 0 && j <= len2) || (j == 0 && i <= len1);
-      const bool valid = interior || boundary;
-
-      // E: gap in s1 (left), predecessor (i, j-1) on diagonal d-1
-      const Cell hl = load_cell(H1, W, l + d1);
-      const Cell el = load_cell(E1, W, l + d1);
-      const int e_open = hl.s - gopen;
-      const int e_ext = el.s - gap_ext;
-      Cell e = e_open >= e_ext ? hl : el;
-      e.s = max(e_open, e_ext);
-      e = push(e, 0, k, mid, mask);
-
-      // F: gap in s2 (up), predecessor (i-1, j) on diagonal d-1
-      const Cell hu = load_cell(H1, W, l + d1 - 1);
-      const Cell fu = load_cell(F1, W, l + d1 - 1);
-      const int f_open = hu.s - gopen;
-      const int f_ext = fu.s - gap_ext;
-      Cell f = f_open >= f_ext ? hu : fu;
-      f.s = max(f_open, f_ext);
-      f = push(f, 0, k, mid, mask);
-
-      // diagonal: (i-1, j-1) on diagonal d-2 plus the substitution column
-      const int ismatch = (in1 && in2 && s1[i - 1] == s2[j - 1]) ? 1 : 0;
-      Cell g = load_cell(H2, W, l + d2 - 1);
-      g.s += mismatch + ismatch * (match - mismatch);
-      g = push(g, ismatch, k, mid, mask);
-
-      // H: the traceback's tie-break, diag > up > left
-      const int h_no_e = max(g.s, f.s);
-      Cell h = e.s > h_no_e ? e : (f.s > g.s ? f : g);
-      if (boundary) {
-        // a boundary cell restarts the path: i + j = dd leading gap columns
-        h = Cell{0, 0, wc_boundary_on ? max(dd - k + 1, 0) : 0, 0, dd};
-      }
-      if (!valid) h.s = kNeg;
-
-      store_cell(Hc, W, l, h);
-      store_cell(Ec, W, l, e);
-      store_cell(Fc, W, l, f);
-      if (valid && i == len1) track(trk, h, j, dd);
-      if (valid && j == len2) track(trk + 8, h, i, dd);
+      return;
     }
-    __syncthreads();
+    if (t.key() != best) return;
+    o[0] = t.c.s;
+    o[1] = t.d - len;   // row tracker: j = d - len1; column: i = d - len2
+    o[2] = static_cast<int>(static_cast<unsigned>(t.c.h) >> (32 - k));
+    o[3] = __popc(static_cast<unsigned>(t.c.h));
+    o[4] = t.c.wc;
+    o[5] = t.c.st.mc();
+    o[6] = t.d - t.c.st.nd();
+    o[7] = t.d;
   }
-  if (threadIdx.x < 16) out[static_cast<size_t>(b) * 16 + threadIdx.x] =
-      trk[threadIdx.x];
-}
+};
+
+// d_max below which mcount and nd share a word
+constexpr int kPackedDmax = 32768;
 
 }  // namespace
 
 extern "C" {
 
-// Sets *ints to 0 when one block's DP state at window width W fits in the
-// shared memory of `device`, else to the int32 count of global scratch each
-// block needs.  Returns the CUDA error code of the device query.
-int ngsid_stats_scratch_ints(int W, int device, int* ints) {
-  int limit = 0;
-  const cudaError_t err = cudaDeviceGetAttribute(
-      &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long state = static_cast<long long>(kBuffers) * kFields * W;
-  const long long bytes =
-      state * static_cast<long long>(sizeof(int)) + kTrackerBytes;
-  *ints = bytes <= limit ? 0 : static_cast<int>(state);
-  return 0;
+// int32 of global scratch one pair needs in memory mode at window width W
+// (the unpacked cell: enough for either).
+int ngsid_stats_state_ints(int W) {
+  return wf::kBuffers * StatsK<false>::kFields * W;
 }
 
-// Launches one block per pair on `stream`.  With scratch == nullptr the DP
-// state lives in dynamic shared memory; otherwise `scratch` holds B blocks
-// of ngsid_stats_scratch_ints(W) int32.  Returns cudaGetLastError() after
-// the launch.
+// Launches the stats DP of B pairs on `stream`: lanes per thread (2 or 4;
+// memory == 0) or memory mode (memory == 1, lanes 1, warps 8, pairs 1,
+// scratch of B * ngsid_stats_state_ints(W) int32), `warps` warps per pair
+// and `pairs` pairs per block (ops/cuda_lib.py::launch_geometry).
+// d_max >= max(len1 + len2).  Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for a geometry the kernel does not take.
 int ngsid_stats_launch(const void* pool, const void* pm, const void* base,
-                       void* out, void* scratch, int B, int W, int band,
-                       int match, int mismatch, int gap_ext, void* stream) {
-  if (B <= 0) return 0;
-  const int smem_bytes =
-      scratch ? 0 : static_cast<int>(kBuffers * kFields * W * sizeof(int));
-  if (smem_bytes > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = W < kMaxThreads ? W : kMaxThreads;
-  stats_kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(pool), static_cast<const long long*>(pm),
-      static_cast<const int*>(base), static_cast<int*>(out),
-      static_cast<int*>(scratch), W, band, match, mismatch, gap_ext);
-  return static_cast<int>(cudaGetLastError());
+                       void* out, void* scratch, int B, int W, int d_max,
+                       int band, int match, int mismatch, int gap_ext,
+                       int lanes, int warps, int pairs, int memory,
+                       void* stream) {
+  wf::Launch a{};
+  a.pool = static_cast<const uint8_t*>(pool);
+  a.pm = static_cast<const long long*>(pm);
+  a.base = static_cast<const int*>(base);
+  a.out = static_cast<int*>(out);
+  a.scratch = static_cast<int*>(scratch);
+  a.B = B;
+  a.W = W;
+  a.dmax = d_max;
+  a.band = band;
+  a.match = match;
+  a.mismatch = mismatch;
+  a.gap_ext = gap_ext;
+  a.nw = warps;
+  a.pairs = pairs;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d_max < kPackedDmax
+             ? wf::launch<StatsK<true>, 2, 4>(a, lanes, memory, 0, s)
+             : wf::launch<StatsK<false>, 2, 4>(a, lanes, memory, 0, s);
 }
 
 const char* ngsid_error_string(int err) {

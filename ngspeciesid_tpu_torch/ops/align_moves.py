@@ -35,12 +35,12 @@ runs banded and nothing falls back to the full host DP.
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..device import stats_backend_default, stats_device
 from .align import DIAG, LEFT, NEG_INF, UP, _bucket_width
 from .align_stats import (
     SeqPool,
@@ -59,6 +59,8 @@ PAIRS = 0
 #: Launches and pairs of the plain PyTorch version (CPU tensors).
 PLAIN_LAUNCHES = 0
 PLAIN_PAIRS = 0
+#: Pairs of each CUDA launch, in launch order.
+SIZES: List[int] = []
 
 #: Pairs per launch.  Kept from the reference: the window schedule is shared
 #: by a chunk, so another chunking could change results at the band's edge.
@@ -68,6 +70,7 @@ MAX_B = 512
 def reset_counts() -> None:
     global LAUNCHES, PAIRS, PLAIN_LAUNCHES, PLAIN_PAIRS
     LAUNCHES = PAIRS = PLAIN_LAUNCHES = PLAIN_PAIRS = 0
+    SIZES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -98,35 +101,43 @@ def moves_rows(pool: torch.Tensor, pm: torch.Tensor, base: torch.Tensor,
 
 
 def _moves_rows_cuda(pool, pm, base, W, d_max, band, match, mismatch,
-                     gap_ext):
+                     gap_ext, geo=None, traceback=True):
+    """Launch csrc/moves_kernel.cu on the pool's stream, with the launch
+    geometry ``geo`` (a ``cuda_lib.Geometry``; default: the one
+    ``cuda_lib.launch_geometry`` picks for W and B).  ``traceback=False``
+    runs the forward sweep alone (``ops`` stay zero), to time it."""
     global LAUNCHES, PAIRS
     from . import cuda_lib
 
     lib = cuda_lib.load()
     B = pm.shape[0]
     dev = pool.device
+    if geo is None:
+        geo = cuda_lib.launch_geometry("moves", W, B,
+                                       cuda_lib.sm_count(dev.index))
     best = torch.empty((B, 16), dtype=torch.int32, device=dev)
     ops = torch.zeros((B, base.numel()), dtype=torch.uint8, device=dev)
     # the move store: one byte per lane of every diagonal's window; freed
     # into the caching allocator after the call, which only reuses it in
     # stream order
     store = torch.empty((B, d_max + 1, W), dtype=torch.uint8, device=dev)
-    ints = ctypes.c_int()
-    err = lib.ngsid_moves_scratch_ints(W, dev.index, ctypes.byref(ints))
-    cuda_lib.check(err, "shared-memory query")
     scratch = None
-    if ints.value:
-        scratch = torch.empty(B * ints.value, dtype=torch.int32, device=dev)
+    if geo.memory:
+        scratch = torch.empty(B * lib.ngsid_moves_state_ints(W),
+                              dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ngsid_moves_launch(
             pool.data_ptr(), pm.data_ptr(), base.data_ptr(), store.data_ptr(),
             ops.data_ptr(), best.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            B, W, d_max, base.numel(), band, match, mismatch, gap_ext, stream)
+            B, W, d_max, base.numel(), band, match, mismatch, gap_ext,
+            geo.lanes, geo.warps, geo.pairs, int(geo.memory), int(traceback),
+            stream)
     cuda_lib.check(err, "moves kernel launch")
     LAUNCHES += 1
     PAIRS += B
+    SIZES.append(B)
     return best, ops
 
 
@@ -317,14 +328,17 @@ def sg_moves_pool_torch(
     """Per pair: the full-span move array (terminal gaps included) of
     ``seqs[rows1[p]]`` against ``seqs[rows2[p]]``, identical in layout to
     ops/align.sg_align_batch, computed on ``device`` (a CUDA device runs
-    the kernel, the CPU the plain version).  The call's rows cross to the
-    device once; every chunk is launched on the current stream before any
-    result is copied back."""
+    the kernel, the CPU the plain version; default:
+    ``stats_device(stats_backend_default())``, so ``cuda:0`` unless the
+    caller asks for the CPU).  The call's rows cross to the device once;
+    every chunk is launched on the current stream before any result is
+    copied back."""
     n_pairs = len(rows1)
     if n_pairs == 0:
         return []
-    pool = SeqPool(torch.device(device) if device is not None
-                   else torch.device("cpu"))
+    if device is None:
+        device = stats_device(stats_backend_default())
+    pool = SeqPool(torch.device(device))
     pool.ensure([seqs[r] for r in dict.fromkeys(list(rows1) + list(rows2))])
     chunks = _plan(seqs, rows1, rows2)
     launched = []
@@ -347,7 +361,8 @@ def sg_moves_pool_torch(
 def sg_moves_batch_torch(pairs, gap_opens, match=2, mismatch=-2, gap_ext=1,
                          band=0, device=None) -> List[np.ndarray]:
     """Pairs-of-arrays wrapper over :func:`sg_moves_pool_torch`; repeated
-    array objects share one pool row."""
+    array objects share one pool row.  ``device=None``: the configured
+    backend's device, as there."""
     seqs, rows1, rows2 = pair_rows(pairs)
     return sg_moves_pool_torch(seqs, rows1, rows2, gap_opens, match=match,
                                mismatch=mismatch, gap_ext=gap_ext, band=band,

@@ -29,12 +29,12 @@ the kernel or raises.  Sequences live in a per-device pool
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..device import stats_backend_default, stats_device
 from .align import NEG_INF, _bucket_width
 
 MAX_K = 30  # history bits must fit int32
@@ -45,11 +45,14 @@ PAIRS = 0
 #: Launches and pairs of the plain PyTorch version (CPU tensors).
 PLAIN_LAUNCHES = 0
 PLAIN_PAIRS = 0
+#: Pairs of each CUDA launch, in launch order.
+SIZES: List[int] = []
 
 
 def reset_counts() -> None:
     global LAUNCHES, PAIRS, PLAIN_LAUNCHES, PLAIN_PAIRS
     LAUNCHES = PAIRS = PLAIN_LAUNCHES = PLAIN_PAIRS = 0
+    SIZES.clear()
 
 
 class SeqPool:
@@ -145,40 +148,46 @@ def stats_rows(pool: torch.Tensor, pm: torch.Tensor, base: torch.Tensor,
     lanes.  CUDA tensors run the kernel, CPU tensors the plain version."""
     check_chunk(pool, pm, base, W, d_max)
     if pool.device.type == "cuda":
-        return _stats_rows_cuda(pool, pm, base, W, band, match, mismatch,
-                                gap_ext)
+        return _stats_rows_cuda(pool, pm, base, W, d_max, band, match,
+                                mismatch, gap_ext)
     if pool.device.type == "cpu":
         return stats_rows_plain(pool, pm, base, W, d_max, band, match,
                                 mismatch, gap_ext)
     raise ValueError(f"no stats DP for device {pool.device}")
 
 
-def _stats_rows_cuda(pool, pm, base, W, band, match, mismatch, gap_ext):
+def _stats_rows_cuda(pool, pm, base, W, d_max, band, match, mismatch,
+                     gap_ext, geo=None):
+    """Launch csrc/stats_kernel.cu on the pool's stream, with the launch
+    geometry ``geo`` (a ``cuda_lib.Geometry``; default: the one
+    ``cuda_lib.launch_geometry`` picks for W and B)."""
     global LAUNCHES, PAIRS
     from . import cuda_lib
 
     lib = cuda_lib.load()
     B = pm.shape[0]
     dev = pool.device
+    if geo is None:
+        geo = cuda_lib.launch_geometry("stats", W, B,
+                                       cuda_lib.sm_count(dev.index))
     out = torch.empty((B, 16), dtype=torch.int32, device=dev)
-    ints = ctypes.c_int()
-    err = lib.ngsid_stats_scratch_ints(W, dev.index, ctypes.byref(ints))
-    cuda_lib.check(err, "shared-memory query")
     scratch = None
-    if ints.value:
-        # state too large for shared memory (band 0 on long reads): one
-        # global slab per block; freed into the caching allocator after the
-        # call, which only reuses it in stream order
-        scratch = torch.empty(B * ints.value, dtype=torch.int32, device=dev)
+    if geo.memory:
+        # one state slab per pair; freed into the caching allocator after
+        # the call, which only reuses it in stream order
+        scratch = torch.empty(B * lib.ngsid_stats_state_ints(W),
+                              dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ngsid_stats_launch(
             pool.data_ptr(), pm.data_ptr(), base.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            B, W, band, match, mismatch, gap_ext, stream)
+            B, W, d_max, band, match, mismatch, gap_ext, geo.lanes,
+            geo.warps, geo.pairs, int(geo.memory), stream)
     cuda_lib.check(err, "stats kernel launch")
     LAUNCHES += 1
     PAIRS += B
+    SIZES.append(B)
     return out
 
 
@@ -590,16 +599,18 @@ def sg_stats_pool_torch(
 ) -> List[Tuple[float, float, float]]:
     """Per pair ``(aligned_ratio_s1, aligned_ratio_s2, identity)`` of
     ``seqs[rows1[p]]`` against ``seqs[rows2[p]]``, computed on ``device``
-    (a CUDA device runs the kernel, the CPU the plain version).  Every chunk
-    is launched on the current stream; then all results move to the host in
-    one step."""
+    (a CUDA device runs the kernel, the CPU the plain version; default:
+    ``stats_device(stats_backend_default())``, so ``cuda:0`` unless the
+    caller asks for the CPU).  Every chunk is launched on the current
+    stream; then all results move to the host in one step."""
     n_pairs = len(rows1)
     if n_pairs == 0:
         return []
     if not all(1 <= k <= MAX_K for k in ks):
         raise ValueError(f"stats DP requires 1 <= k <= {MAX_K}")
-    pool = device_pool(torch.device(device) if device is not None
-                       else torch.device("cpu"))
+    if device is None:
+        device = stats_device(stats_backend_default())
+    pool = device_pool(torch.device(device))
     pool.ensure([seqs[r] for r in dict.fromkeys(list(rows1) + list(rows2))])
     chunks = _plan_chunks(seqs, rows1, rows2)
     futures = []
@@ -647,7 +658,8 @@ def sg_stats_batch_torch(
     device: Optional[torch.device] = None,
 ) -> List[Tuple[float, float, float]]:
     """:func:`sg_stats_pool_torch` over explicit pairs; repeated array
-    objects share one pool row."""
+    objects share one pool row.  ``device=None``: the configured backend's
+    device, as there."""
     if not pairs:
         return []
     seqs, rows1, rows2 = pair_rows(pairs)
@@ -659,7 +671,8 @@ def sg_stats_batch_torch(
 
 def block_stats_torch(pairs, gap_opens, ks, match_ids, band=0, device=None):
     """(aligned_ratio, target_ratio) per pair — counterpart of
-    native.block_stats_native."""
+    native.block_stats_native (``device=None``: the configured backend's
+    device)."""
     out = sg_stats_batch_torch(pairs, gap_opens, ks, match_ids, band=band,
                                device=device)
     return [(r1, r2) for r1, r2, _ in out]
@@ -668,7 +681,8 @@ def block_stats_torch(pairs, gap_opens, ks, match_ids, band=0, device=None):
 def identity_torch(pairs, gap_opens, match=2, mismatch=-2, gap_ext=1,
                    band=0, device=None):
     """Column identity per pair — counterpart of native.identity_native
-    (consensus.py:129-145 alignment parameters)."""
+    (consensus.py:129-145 alignment parameters; ``device=None``: the
+    configured backend's device)."""
     out = sg_stats_batch_torch(
         pairs, gap_opens, [1] * len(pairs), [1] * len(pairs),
         match=match, mismatch=mismatch, gap_ext=gap_ext, band=band,

@@ -11,13 +11,14 @@ nvcc's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -96,29 +97,115 @@ def build() -> str:
     return so
 
 
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+#: The C entry points of ``csrc/*.cu``: name -> (argtypes, restype), set on
+#: the library by :func:`load`.  Pointers and the stream are ``c_void_p``
+#: (a plain int would cut them to 32 bits).  tests/test_torch_cuda_abi.py
+#: holds this table against the sources' ``extern "C"`` definitions.
+SIGNATURES = {
+    "ngsid_stats_state_ints": ([_ci], _ci),
+    "ngsid_stats_launch": ([_vp] * 5 + [_ci] * 11 + [_vp], _ci),
+    "ngsid_moves_state_ints": ([_ci], _ci),
+    "ngsid_moves_launch": ([_vp] * 7 + [_ci] * 13 + [_vp], _ci),
+    "ngsid_full_dp_launch": ([_vp] * 5 + [_ci] * 7 + [_vp], _ci),
+    "ngsid_error_string": ([_ci], ctypes.c_char_p),
+}
+
+
 def load() -> ctypes.CDLL:
     """The kernels' library, built if needed, with its C signatures set."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ngsid_stats_scratch_ints.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        lib.ngsid_stats_scratch_ints.restype = ci
-        lib.ngsid_stats_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                           ci, ci, vp]
-        lib.ngsid_stats_launch.restype = ci
-        lib.ngsid_moves_scratch_ints.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        lib.ngsid_moves_scratch_ints.restype = ci
-        lib.ngsid_moves_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                           ci, ci, ci, ci, ci, ci, vp]
-        lib.ngsid_moves_launch.restype = ci
-        lib.ngsid_full_dp_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                             ci, ci, ci, ci, vp]
-        lib.ngsid_full_dp_launch.restype = ci
-        lib.ngsid_error_string.argtypes = [ci]
-        lib.ngsid_error_string.restype = ctypes.c_char_p
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _lib = lib
     return _lib
+
+
+# ---------------------------------------------------------------------------
+# launch geometry of the wavefront kernels (csrc/wavefront.cuh)
+# ---------------------------------------------------------------------------
+
+#: Lanes per thread of each kernel's register-mode instantiations, fewest
+#: first (csrc/stats_kernel.cu, csrc/moves_kernel.cu).
+REGISTER_LANES = {"stats": (2, 4), "moves": (2, 4, 8)}
+#: Threads per block at most (wf::kMaxBlockThreads); pairs per block at
+#: most (wf::kMaxPairs), 15 when a pair spans several warps (named barriers
+#: 1-15).
+MAX_BLOCK_THREADS = 512
+MAX_PAIRS = 16
+#: Memory mode: one pair per block of this many threads (wf::kMemThreads).
+MEM_THREADS = 256
+#: Threads of a launch per SM above which it takes more lanes per thread
+#: (fewer instructions per cell) rather than more threads (a shorter chain
+#: per diagonal).  128 picks the fastest lane count of chip_smoke.py's
+#: geometry sweep at all four timed shapes (stats at 4096 and 128 pairs,
+#: moves at 512 and 100; H100 80GB HBM3 at 700 W, PERF.md).
+BUSY_THREADS_PER_SM = 128
+#: Threads per block that pairs are packed to when a launch has more pairs
+#: than the card has SMs (the sweep's best at the stats kernel's 4096-pair
+#: shape, 4 lanes x 2 warps x 2 pairs; H100 80GB HBM3 at 700 W, PERF.md).
+PACK_THREADS = 128
+
+
+class Geometry(NamedTuple):
+    lanes: int      # lanes per thread (1 in memory mode)
+    warps: int      # warps per pair
+    pairs: int      # pairs per block
+    memory: bool    # DP state in global scratch instead of registers
+
+    @property
+    def threads(self) -> int:
+        return self.pairs * self.warps * 32
+
+
+def block_threads(kind: str, lanes: int) -> int:
+    """Threads per block at most of a register-mode instantiation (its
+    __launch_bounds__, wf::block_threads): 256 for the stats kernel at 4
+    lanes per thread, whose registers need more than 128 a thread."""
+    return 256 if kind == "stats" and lanes >= 4 else MAX_BLOCK_THREADS
+
+
+def geometries(kind: str, W: int) -> List[Geometry]:
+    """Every geometry a ``kind`` kernel takes at window width W with one
+    pair per block: each register-mode lane count whose warps tile W within
+    a block, then memory mode."""
+    out = [Geometry(L, W // (32 * L), 1, False) for L in REGISTER_LANES[kind]
+           if W % (32 * L) == 0 and W // L <= block_threads(kind, L)]
+    return out + [Geometry(1, MEM_THREADS // 32, 1, True)]
+
+
+def launch_geometry(kind: str, W: int, B: int, sms: int) -> Geometry:
+    """Lanes per thread, warps per pair and pairs per block of a ``kind``
+    ("stats" or "moves") launch of B pairs at window width W on a card with
+    ``sms`` SMs.  A pair's window lies in registers (W == warps * 32 *
+    lanes) unless it is too wide for one block (memory mode).  Few pairs:
+    the fewest lanes per thread, so that each diagonal is a short chain;
+    many pairs: more lanes per thread while the threads would exceed what
+    the SMs keep busy.  Pairs per block: one while the pairs fit one per
+    SM, then up to PACK_THREADS threads."""
+    fits = [g.lanes for g in geometries(kind, W) if not g.memory]
+    if not fits:
+        return geometries(kind, W)[-1]
+    lanes = fits[0]
+    for more in fits[1:]:
+        if B * (W // lanes) > sms * BUSY_THREADS_PER_SM:
+            lanes = more
+    warps = W // (32 * lanes)
+    per_sm = -(-B // max(sms, 1))
+    pairs = max(1, min(PACK_THREADS // (32 * warps), per_sm))
+    return Geometry(lanes, warps, pairs, False)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -151,6 +151,28 @@ class TestWrapper:
         assert (port.PLAIN_LAUNCHES, port.PLAIN_PAIRS) == (1, 3)
         assert (port.LAUNCHES, port.PAIRS) == (0, 0)
 
+    @pytest.mark.parametrize("fn", ["pool", "batch"])
+    def test_entry_points_default_to_the_backends_device(self, rng,
+                                                         monkeypatch, fn):
+        # device=None: cuda:0 under the default backend, which raises with
+        # no GPU; the CPU only when the backend asks for it
+        pairs = [(rand_seq(rng, 40), rand_seq(rng, 50)) for _ in range(2)]
+        calls = {
+            "pool": lambda: port.sg_moves_pool_torch(
+                [a for p in pairs for a in p], [0, 2], [1, 3], [3, 3]),
+            "batch": lambda: port.sg_moves_batch_torch(pairs, [3, 3]),
+        }
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.delenv("NGSID_STATS_BACKEND", raising=False)
+        port.reset_counts()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            calls[fn]()
+        monkeypatch.setenv("NGSID_STATS_BACKEND", "torch")
+        out = calls[fn]()
+        assert len(out) == 2
+        assert (port.PLAIN_LAUNCHES, port.PLAIN_PAIRS) == (1, 2)
+        assert (port.LAUNCHES, port.PAIRS) == (0, 0)
+
     def test_chunk_plan_equals_reference(self, rng):
         seqs = [rand_seq(rng, int(n)) for n in rng.integers(30, 1700, 90)]
         rows1 = rng.integers(0, 90, 1400).tolist()

@@ -235,6 +235,33 @@ class TestBackendChoice:
             port_device.stats_device("cuda")
         assert port_device.stats_device("torch") == CPU
 
+    @pytest.mark.parametrize("fn", ["pool", "batch", "block", "identity"])
+    def test_entry_points_default_to_the_backends_device(self, rng,
+                                                         monkeypatch, fn):
+        # device=None: cuda:0 under the default backend, which raises with
+        # no GPU; the CPU only when the backend asks for it
+        pairs = [(rand_seq(rng, 40), rand_seq(rng, 50)) for _ in range(2)]
+        calls = {
+            "pool": lambda: port.sg_stats_pool_torch(
+                [a for p in pairs for a in p], [0, 2], [1, 3], [3, 3],
+                [13, 13], [9, 9]),
+            "batch": lambda: port.sg_stats_batch_torch(pairs, [3, 3],
+                                                       [13, 13], [9, 9]),
+            "block": lambda: port.block_stats_torch(pairs, [3, 3], [13, 13],
+                                                    [9, 9]),
+            "identity": lambda: port.identity_torch(pairs, [3, 3]),
+        }
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.delenv("NGSID_STATS_BACKEND", raising=False)
+        port.reset_counts()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            calls[fn]()
+        monkeypatch.setenv("NGSID_STATS_BACKEND", "torch")
+        out = calls[fn]()
+        assert len(out) == 2
+        assert (port.PLAIN_LAUNCHES, port.PLAIN_PAIRS) == (1, 2)
+        assert (port.LAUNCHES, port.PAIRS) == (0, 0)
+
     @pytest.mark.parametrize("fn", ["block", "identity"])
     def test_dispatch_backends_agree(self, rng, fn):
         from ngspeciesid_tpu import native
