@@ -4,11 +4,12 @@
 Run from the repository root, with no arguments and no install:
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --times-only # phase 1, then 2d without the plain versions
+    python3 chip_smoke.py --times-only # phase 1, then 2d without the plain
+                                       # versions and the full DP's entry point
 
-``--times-only`` uses only the kernels' public wrappers, so a copy of this
-file run from an older checkout's root times that checkout's kernels at the
-same shapes on the same seeds.
+``--times-only`` uses only the kernels' public wrappers and the full DP's
+entry point, so a copy of this file run from an older checkout's root times
+that checkout's kernels at the same shapes on the same seeds.
 
 Phases, each fatal on failure:
 
@@ -30,24 +31,33 @@ Phases, each fatal on failure:
       clustering scoring, mutated and unrelated pairs, every geometry for
       small chunks.  At band 0 the reconstructed moves must also equal the
       numpy oracle.
-   c. full-DP kernel: moves and endpoint rows bit-equal over lengths
-      {8-90, 90-120, 300-500, 500-800, 1100-1400}, POA and clustering
-      scoring, mutated and unrelated pairs, and an 11-pair batch; op
-      streams equal to the numpy oracle up to 500 bp.  At the polish shape
-      its entry point, sg_align_batch_full, runs once with the counts at 0
-      (its launches in the JSON line come from there) and its op streams
-      must equal the native engine's band-0 DP; timed there against its
-      plain version.
+   c. full-DP kernel (the moves wavefront in a fixed full frame, traced
+      back on the card): endpoint rows and op streams bit-equal over
+      lengths {8-90, 90-120, 300-500, 500-800, 1100-1400}, POA and
+      clustering scoring, mutated and unrelated pairs, an 11-pair batch and
+      one pair of ~8.5 kb reads (memory mode); chunks of up to 8 pairs
+      under every launch geometry; op streams equal to the numpy oracle up
+      to 500 bp and to the native band-0 DP at ~8.5 kb.  At the polish
+      shape (one 700 bp center against 512 reads of 650-750 bp, POA
+      scoring) it is timed (the forward sweep alone too) against its plain
+      version and its bound, and its entry point's wall is split into
+      staging, kernel, download and reconstruction; the entry point,
+      sg_align_batch_full, runs once with the counts at 0 (its launches in
+      the JSON line come from there), its op streams must equal the native
+      engine's band-0 DP, and under torch.profiler only the endpoint rows
+      and op streams may be copied to the host.
    d. times per launch (CUDA events, warm median) of the stats kernel at a
       4096-pair clustering wave and a 128-pair launch (~700 bp, band 150,
       k 13), and of the moves kernel at the polish shape (one ~700 bp
-      center against 512 reads of 650-750 bp; band 150, POA scoring) and a
-      100-pair draft-sized launch of the same kind; both kernels also at
-      band 0 on ~700 bp and ~1.4 kb reads (windows of 1152 and 1664
-      lanes); each against its plain version (bit-equal there too) and its
-      bound.
-   e. the geometry sweep: the same shapes under every register-mode launch
-      geometry with 1-8 pairs per block.
+      center against 512 reads of 650-750 bp; band 150, POA scoring), a
+      100-pair draft-sized launch of the same kind, and 256 and 512 reads
+      of 520-880 bp (a 384-lane window, 3 warps a pair); both kernels
+      also at band 0 on ~700 bp and ~1.4 kb reads (windows of 1152 and
+      1664 lanes); each against its plain version (bit-equal there too)
+      and its bound.
+   e. the geometry sweep: the same shapes, and the full DP at the polish
+      shape, under every register-mode launch geometry with 1-8 pairs per
+      block, and memory mode.
 3. Main path: simulates a 20,000-read pool (50 species, 700 bp, 7% error)
    with the port's simulator and runs the CLI in-process with
    --consensus --medaka, on the default backend (cuda) and on the native
@@ -98,11 +108,17 @@ MOVES_CASES = [(8, lo, hi, band, poa)
 #: clustering wave and a launch of the main path's typical size; the moves
 #: kernel's polish and draft shapes; and for both, band 0 (the full DP, a
 #: user setting) on ~700 bp and ~1.4 kb reads, whose windows (1152 and 1664
-#: lanes) are wider than the stats kernel's register mode takes.
+#: lanes) are wider than the stats kernel's register mode takes.  A moves
+#: shape may add the range of its read lengths (default center +- 50 bp):
+#: reads of 520-880 bp against a 700 bp center widen the polish band's
+#: window to 384 lanes, 3 warps a pair, which share a block two or four at
+#: a time once a launch has more pairs than the card has SMs
+#: (cuda_lib.launch_geometry).
 STATS_TIMED = ((4096, 700, 150), (128, 700, 150), (128, 700, 0),
                (128, 1400, 0))
 MOVES_TIMED = ((512, 700, 150), (100, 700, 150), (100, 700, 0),
-               (100, 1400, 0))
+               (100, 1400, 0), (256, 700, 150, (520, 880)),
+               (512, 700, 150, (520, 880)))
 #: H100 SXM peaks (NVIDIA's H100 data sheet and architecture white paper):
 #: device memory bytes per second and int32 operations per second.
 HBM_BYTES_PER_S = 3.35e12
@@ -118,12 +134,14 @@ INT32_OPS_PER_S = 33.5e12
 MOVES_OPS_PER_CELL = 13
 STATS_OPS_PER_CELL = 9 + 3 * 6 + 1
 #: (pairs, min length, max length, POA scoring) of the full-DP kernel's
-#: cases: half of each batch mutated copies, half unrelated pairs, and an
-#: 11-pair batch.
+#: cases: half of each batch mutated copies, half unrelated pairs, an
+#: 11-pair batch, and one pair of ~8.5 kb reads (W 8704: memory mode, and
+#: an s1 longer than 8,191 bytes, which the first full-DP kernel refused).
 FULL_CASES = [(8, lo, hi, poa)
               for lo, hi in ((8, 90), (90, 120), (300, 500), (500, 800),
                              (1100, 1400))
-              for poa in (True, False)] + [(11, 30, 40, False)]
+              for poa in (True, False)] + [(11, 30, 40, False),
+                                           (1, 8300, 8600, False)]
 #: the full DP's operations per cell: the moves kernel's recurrence and
 #: move byte
 FULL_OPS_PER_CELL = MOVES_OPS_PER_CELL
@@ -374,15 +392,15 @@ def stats_shape(A, dev, rng, B, length=700, band=150):
     return (pool.buf, pm, base, W, d_max, band), len1, len2
 
 
-def moves_shape(A, M, dev, rng, B, length=700, band=150):
-    """One center of ``length`` bp against B reads of length +- 50 bp
-    mutated from it (POA scoring; band 150 is the polish band) in one chunk:
-    the moves kernel's arguments on ``dev``, the center and the read
-    lengths."""
+def moves_shape(A, M, dev, rng, B, length=700, band=150, reads=None):
+    """One center of ``length`` bp against B reads mutated from it, of
+    length +- 50 bp or in ``reads`` = (lo, hi) (POA scoring; band 150 is
+    the polish band) in one chunk: the moves kernel's arguments on
+    ``dev``, the center and the read lengths."""
     from ngspeciesid_tpu_torch.ops.poa import (
         POA_EXT, POA_MATCH, POA_MISMATCH, POA_OPEN)
 
-    center, reads = polish_shape(rng, B, length)
+    center, reads = polish_shape(rng, B, length, reads)
     seqs = [center] + reads
     r2 = list(range(1, len(seqs)))
     assert len(M._plan(seqs, [0] * B, r2)) == 1
@@ -406,7 +424,7 @@ def phase_kernel_times(A, M, dev, plain=True):
     out = {"stats": [], "moves": []}
     shapes = [("stats", *s) for s in STATS_TIMED] + [("moves", *s)
                                                     for s in MOVES_TIMED]
-    for kind, B, length, band in shapes:
+    for kind, B, length, band, *reads in shapes:
         if kind == "stats":
             args, len1, len2 = stats_shape(A, dev, rng, B, length, band)
             kern, ref = A.stats_rows, A.stats_rows_plain
@@ -419,7 +437,7 @@ def phase_kernel_times(A, M, dev, plain=True):
             ops = cells * STATS_OPS_PER_CELL
         else:
             args, center, len2 = moves_shape(A, M, dev, rng, B, length,
-                                             band)
+                                             band, *reads)
             kern, ref = M.moves_rows, M.moves_rows_plain
             W, d_max = args[3], args[4]
             cells = band_cells(A, args[1], d_max, args[5])
@@ -430,7 +448,8 @@ def phase_kernel_times(A, M, dev, plain=True):
                       + args[2].numel() * 4 + B * 16 * 4
                       + B * args[2].numel() + cells)
             ops = cells * MOVES_OPS_PER_CELL
-        row = dict(pairs=B, length=length, band=args[5], W=W,
+        row = dict(pairs=B, length=length, reads=reads[0] if reads else None,
+                   band=args[5], W=W,
                    diagonals=d_max, cells=cells, bytes=nbytes,
                    ms=time_cuda(lambda: kern(*args), 9))
         if plain and kind == "moves":
@@ -455,67 +474,162 @@ def phase_kernel_times(A, M, dev, plain=True):
     return out
 
 
-def phase_geometry_sweep(A, M, dev):
+def phase_geometry_sweep(A, M, F, dev):
     """The kernels' time at each timed shape under every register-mode
-    geometry with 1, 2, 4 or 8 pairs per block (CUDA events, warm median):
-    the measurements behind cuda_lib.launch_geometry's rule."""
+    geometry with 1, 2, 4 or 8 pairs per block, and memory mode (CUDA
+    events, warm median): the measurements behind
+    cuda_lib.launch_geometry's rule, which the full DP takes from the moves
+    kernel ("full" below, at the polish shape, unbanded)."""
     import numpy as np
 
     from ngspeciesid_tpu_torch.ops import cuda_lib
+    from ngspeciesid_tpu_torch.ops.poa import POA_EXT, POA_MATCH, POA_MISMATCH
 
     rng = np.random.default_rng(5)
-    for kind, shapes in (("stats", STATS_TIMED), ("moves", MOVES_TIMED)):
-        for B, length, band in shapes:
-            if kind == "stats":
-                args = stats_shape(A, dev, rng, B, length, band)[0]
-                call = A._stats_rows_cuda
-                extra = (2, -2, 1)
-            else:
-                args = moves_shape(A, M, dev, rng, B, length, band)[0]
-                call = M._moves_rows_cuda
-                extra = ()
+    shapes = ([("stats", *x) for x in STATS_TIMED]
+              + [("moves", *x) for x in MOVES_TIMED] + [("full", 512, 700, 0)])
+    for kind, B, length, band, *reads in shapes:
+        if kind == "stats":
+            args = stats_shape(A, dev, rng, B, length, band)[0]
+            call = A._stats_rows_cuda
+            extra = (2, -2, 1)
             W = args[3]
-            auto = cuda_lib.launch_geometry(kind, W, B,
-                                            cuda_lib.sm_count(dev.index))
-            times = {}
-            for g in cuda_lib.geometries(kind, W):
-                for pairs in ((1,) if g.memory else (1, 2, 4, 8)):
-                    geo = g._replace(pairs=pairs)
-                    if not geo.memory and geo.threads > \
-                            cuda_lib.block_threads(kind, geo.lanes):
-                        continue
-                    times[str(tuple(geo))] = time_cuda(
-                        lambda: call(*args, *extra, geo=geo), 5)
-            log(f"geometry sweep, {kind} at {B} pairs, ~{length} bp, band "
-                f"{args[5]}, W={W} (lanes, warps, pairs, memory): "
-                f"{json.dumps(times)}; default {tuple(auto)}")
+        elif kind == "moves":
+            args = moves_shape(A, M, dev, rng, B, length, band, *reads)[0]
+            call = M._moves_rows_cuda
+            extra = ()
+            W = args[3]
+        else:
+            _, pairs, opens = full_polish_case(rng)
+            args = F.stage_pairs(pairs, opens, dev)[:4]
+            call = F._full_dp_rows_cuda
+            extra = (POA_MATCH, POA_MISMATCH, POA_EXT)
+            W = args[2]
+        geo_kind = "moves" if kind == "full" else kind
+        auto = cuda_lib.launch_geometry(geo_kind, W, B,
+                                        cuda_lib.sm_count(dev.index))
+        times = {}
+        for g in cuda_lib.geometries(geo_kind, W):
+            for pairs in ((1,) if g.memory else (1, 2, 4, 8)):
+                geo = g._replace(pairs=pairs)
+                if not geo.memory and geo.threads > \
+                        cuda_lib.block_threads(geo_kind, geo.lanes):
+                    continue
+                times[str(tuple(geo))] = time_cuda(
+                    lambda: call(*args, *extra, geo=geo), 5)
+        log(f"geometry sweep, {kind} at {B} pairs, ~{length} bp"
+            f"{f' (reads {reads[0]})' if reads else ''}, band "
+            f"{band}, W={W} (lanes, warps, pairs, memory): "
+            f"{json.dumps(times)}; default {tuple(auto)}")
 
 
-def polish_shape(rng, n=512, length=700):
-    """One center of ``length`` bp and n reads of length +- 50 bp mutated
-    from it."""
+def polish_shape(rng, n=512, length=700, reads=None):
+    """One center of ``length`` bp and n reads mutated from it, of length
+    +- 50 bp; or, with ``reads`` = (lo, hi), each cut at its end or
+    extended there with random bases to a length drawn from [lo, hi]."""
     import numpy as np
 
     center = rng.integers(65, 69, size=length).astype(np.uint8)
-    reads = []
-    while len(reads) < n:
+    lo, hi = reads or (length - 50, length + 50)
+    out = []
+    while len(out) < n:
         r = mutate(rng, center, 0.07)
-        if abs(r.size - length) <= 50:
-            reads.append(r)
-    return center, reads
+        if reads:
+            want = int(rng.integers(lo, hi + 1))
+            r = np.concatenate([r[:want], rng.integers(
+                65, 69, size=max(0, want - r.size)).astype(np.uint8)])
+        if lo <= r.size <= hi:
+            out.append(r)
+    return center, out
 
 
-def phase_full_dp_kernel(F, dev, cases=FULL_CASES):
-    """Phase 2c: full-DP kernel moves and endpoint rows against the plain
-    version's, bit for bit; op streams against the numpy oracle (small
-    sizes) and the native engine's band-0 DP (the polish shape); its time at
-    the polish shape; and its launches from its entry point,
-    ``sg_align_batch_full``, run once at that shape with the counts at 0."""
+def device_trace(fn):
+    """Run fn() once under torch.profiler and read its device side from the
+    trace: kernel, copy and memset milliseconds, and the bytes of each
+    direction of copy ({"DtoH": bytes, ...})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(path)
+    out = dict(kernel_ms=0.0, memcpy_ms=0.0, memset_ms=0.0, copied={},
+               kernels=0)
+    for ev in events:
+        cat = ev.get("cat", "")
+        ms = float(ev.get("dur", 0)) / 1e3
+        if cat == "kernel":
+            out["kernel_ms"] += ms
+            out["kernels"] += 1
+        elif cat == "gpu_memset":
+            out["memset_ms"] += ms
+        elif cat == "gpu_memcpy":
+            out["memcpy_ms"] += ms
+            kind = next((k for k in ("DtoH", "HtoD", "DtoD")
+                         if k in ev.get("name", "")), "other")
+            out["copied"][kind] = out["copied"].get(kind, 0) + int(
+                ev.get("args", {}).get("bytes", 0))
+    return out
+
+
+def full_polish_case(rng):
+    """The full DP's timed shape: one 700 bp center against 512 reads of
+    650-750 bp (the moves kernel's polish shape, unbanded), POA scoring."""
+    from ngspeciesid_tpu_torch.ops.poa import POA_OPEN
+
+    center, reads = polish_shape(rng)
+    return center, [(center, r) for r in reads], [POA_OPEN] * len(reads)
+
+
+def time_full_entry(F, rng):
+    """The full DP's entry point, sg_align_batch_full, at the polish shape
+    on the default device: its wall (host clock, warm, median of 3) and
+    one call's device side under torch.profiler.  Only the entry point's
+    name and signature are used, so an older checkout is timed the same
+    way."""
+    import torch
+
+    from ngspeciesid_tpu_torch.ops.poa import POA_EXT, POA_MATCH, POA_MISMATCH
+
+    poa = (POA_MATCH, POA_MISMATCH, POA_EXT)
+    _, pairs, opens = full_polish_case(rng)
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        F.sg_align_batch_full(pairs, opens, *poa)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    trace = device_trace(lambda: F.sg_align_batch_full(pairs, opens, *poa))
+    row = dict(wall_s=statistics.median(walls[1:]), walls_s=walls, **trace)
+    log(f"full DP entry point sg_align_batch_full at the polish shape: "
+        f"{json.dumps(row)}")
+    return row
+
+
+def phase_full_dp_kernel(F, M, dev, cases=FULL_CASES):
+    """Phase 2c: full-DP kernel endpoint rows and op streams against the
+    plain version's, bit for bit, under the default launch geometry and,
+    for small chunks, under every geometry; op streams against the numpy
+    oracle (small sizes) and the native engine's band-0 DP (the ~8.5 kb
+    pair and the polish shape); its time at the polish shape, the forward
+    sweep alone, and the plain version's; the entry point's wall in parts;
+    and its launches from the entry point, ``sg_align_batch_full``, run
+    once at that shape with the counts at 0, copying only the endpoint rows
+    and the op streams to the host."""
     import numpy as np
     import torch
 
     from ngspeciesid_tpu_torch import native
-    from ngspeciesid_tpu_torch.ops.align import sg_align_batch, traceback_moves
+    from ngspeciesid_tpu_torch.ops.align import sg_align_batch
     from ngspeciesid_tpu_torch.ops.poa import (
         POA_EXT, POA_MATCH, POA_MISMATCH, POA_OPEN)
 
@@ -525,20 +639,27 @@ def phase_full_dp_kernel(F, dev, cases=FULL_CASES):
 
     def held(pairs, opens, scoring, what):
         nonlocal max_err
-        staged = F.stage_pairs(pairs, opens, dev)
-        moves, best = F.full_dp_rows(*staged, *scoring)
-        p_moves, p_best = F.full_dp_rows_plain(*staged, *scoring)
+        *args, len1, len2 = F.stage_pairs(pairs, opens, dev)
+        best, ops = F.full_dp_rows(*args, *scoring)
+        p_best, p_ops = F.full_dp_rows_plain(*args, *scoring)
         torch.cuda.synchronize()
         err = max(int((best.long() - p_best.long()).abs().max()),
-                  int((moves != p_moves).sum()))
+                  int((ops.long() - p_ops.long()).abs().max()))
         max_err = max(max_err, err)
-        if not (torch.equal(moves, p_moves) and torch.equal(best, p_best)):
-            bad = ((best != p_best).any(1)
-                   | (moves != p_moves).flatten(1).any(1))
+        if not (torch.equal(best, p_best) and torch.equal(ops, p_ops)):
+            bad = (best != p_best).any(1) | (ops != p_ops).any(1)
             raise AssertionError(
                 f"full DP kernel differs from the plain version: {what}, "
                 f"pairs {bad.nonzero().flatten().tolist()[:8]}")
-        return staged, moves, best
+        held_geometries(
+            "moves", lambda geo: F._full_dp_rows_cuda(*args, *scoring,
+                                                     geo=geo),
+            (p_best, p_ops), args[2], len(pairs), what)
+        return args, best, ops, len1, len2
+
+    def streams(best, ops, len1, len2):
+        return M._reconstruct(best.cpu().numpy(), ops.cpu().numpy(), len1,
+                              len2)
 
     for B, lo, hi, is_poa in cases:
         seqs, opens, _, _ = make_pairs(rng, B, lo, hi, 13)
@@ -548,7 +669,7 @@ def phase_full_dp_kernel(F, dev, cases=FULL_CASES):
         pairs = list(zip(seqs[0::2], seqs[1::2]))
         what = (f"B={B} len {lo}-{hi} "
                 f"{'POA' if is_poa else 'clustering'} scoring")
-        held(pairs, opens, scoring, what)
+        args, best, ops, len1, len2 = held(pairs, opens, scoring, what)
         if hi <= 500:
             got = F.sg_align_batch_full(pairs, opens, *scoring, device=dev)
             want = sg_align_batch(pairs, opens, *scoring, backend="numpy")
@@ -557,61 +678,83 @@ def phase_full_dp_kernel(F, dev, cases=FULL_CASES):
                     raise AssertionError(
                         f"full DP op streams differ from the numpy oracle: "
                         f"{what}, pair {t}")
-        log(f"full DP kernel == plain: {what}"
-            f"{', streams == numpy oracle' if hi <= 500 else ''}")
+        elif hi > 8191:
+            got = streams(best, ops, len1, len2)
+            want = native.align_batch_native(pairs, opens, *scoring, band=0)
+            if [g.tolist() for g in got] != [w.tolist() for w in want]:
+                raise AssertionError(f"full DP op streams differ from the "
+                                     f"native band-0 DP: {what}")
+        geo = "every geometry" if B <= 8 else "default geometry"
+        log(f"full DP kernel == plain: {what}, W={args[2]} ({geo}"
+            f"{', streams == numpy oracle' if hi <= 500 else ''}"
+            f"{', streams == native band-0 DP' if hi > 8191 else ''})")
 
-    center, reads = polish_shape(rng)
-    pairs = [(center, r) for r in reads]
-    opens = [POA_OPEN] * len(pairs)
-    staged, moves, best = held(pairs, opens, poa, "polish shape")
-    ms = time_cuda(lambda: F.full_dp_rows(*staged, *poa), 9)
-    plain_ms = time_cuda(lambda: F.full_dp_rows_plain(*staged, *poa), 3)
+    center, pairs, opens = full_polish_case(rng)
+    args, best, ops, len1, len2 = held(pairs, opens, poa, "polish shape")
+    ms = time_cuda(lambda: F.full_dp_rows(*args, *poa), 9)
+    sweep_ms = time_cuda(
+        lambda: F._full_dp_rows_cuda(*args, *poa, traceback=False), 9)
+    plain_ms = time_cuda(lambda: F.full_dp_rows_plain(*args, *poa), 3)
+
+    # the entry point's wall in its parts (host clock, each part ended by a
+    # synchronize): staging (pool upload and pair table), the kernel, the
+    # download of the endpoint rows and op streams, the host reconstruction
+    parts = {}
     t0 = time.perf_counter()
-    host_moves = moves.cpu().numpy()
-    copy_s = time.perf_counter() - t0
-    best = best.cpu().numpy()
+    *args2, len1, len2 = F.stage_pairs(pairs, opens, dev)
+    torch.cuda.synchronize()
+    parts["staging_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for p, r in enumerate(reads):
-        rb, rj, cb, ci = best[p]
-        end = (center.size, int(rj)) if rb >= cb else (int(ci), r.size)
-        traceback_moves(F.row_view(host_moves[p], center.size, r.size),
-                        center.size, r.size, end)
-    traceback_s = time.perf_counter() - t0
-    del host_moves
+    best2, ops2 = F.full_dp_rows(*args2, *poa)
+    torch.cuda.synchronize()
+    parts["kernel_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = best2.cpu().numpy(), ops2.cpu().numpy()
+    parts["download_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    M._reconstruct(*host, len1, len2)
+    parts["reconstruct_s"] = time.perf_counter() - t0
 
     F.reset_counts()
     t0 = time.perf_counter()
     got = F.sg_align_batch_full(pairs, opens, *poa)   # default device
     entry_s = time.perf_counter() - t0
-    launches = F.LAUNCHES
-    if launches == 0 or F.PAIRS != len(pairs) or F.PLAIN_LAUNCHES:
+    launches, launched_pairs = F.LAUNCHES, F.PAIRS
+    if launches == 0 or launched_pairs != len(pairs) or F.PLAIN_LAUNCHES:
         raise AssertionError(
-            f"sg_align_batch_full ran {F.PAIRS} pairs in {launches} kernel "
-            f"launches and {F.PLAIN_LAUNCHES} plain ones")
+            f"sg_align_batch_full ran {launched_pairs} pairs in {launches} "
+            f"kernel launches and {F.PLAIN_LAUNCHES} plain ones")
     want = native.align_batch_native(pairs, opens, *poa, band=0)
     for t, (g, w) in enumerate(zip(got, want)):
         if g.tolist() != w.tolist():
             raise AssertionError(f"full DP op streams differ from the native "
                                  f"band-0 DP at the polish shape: pair {t}")
-    s1, s2, meta = staged
-    cells = int((meta[:, 0].long() * meta[:, 1].long()).sum())
-    # bytes the work needs: both sequence blocks and the pair table in, one
-    # move byte per interior cell and the endpoint rows out (the diagonal
-    # layout's padding is the kernel's choice, not the work's)
-    nbytes = (s1.numel() + s2.numel() + meta.numel() * 4 + cells
-              + best.size * 4)
+    trace = device_trace(lambda: F.sg_align_batch_full(pairs, opens, *poa))
+    host_bytes = best.numel() * 4 + ops.numel()
+    if trace["copied"].get("DtoH") != host_bytes:
+        raise AssertionError(
+            f"sg_align_batch_full copied {trace['copied']} bytes between "
+            f"host and device; only the endpoint rows and op streams, "
+            f"{host_bytes} bytes, should come back")
+    cells = int((args[1][:, 0] * args[1][:, 1]).sum())
+    # bytes the work needs: the center once and every read, the pair
+    # table, one move byte per cell, the endpoint rows and op streams out
+    nbytes = (center.size + int(len2.sum()) + args[1].numel() * 8 + cells
+              + host_bytes)
     bound, by = bound_ms(nbytes, cells * FULL_OPS_PER_CELL)
+    row = dict(ms=ms, sweep_ms=sweep_ms, traceback_ms=ms - sweep_ms,
+               plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, W=args[2], diagonals=args[3], cells=cells,
+               bytes=nbytes, entry_wall_s=entry_s, entry_parts=parts,
+               entry_device=trace)
     log(f"full DP kernel at the polish shape (512 pairs, 700 bp center, "
-        f"reads 650-750 bp, L={moves.shape[2]}, {moves.shape[1]} diagonals, "
-        f"{cells} cells, {nbytes} bytes needed): kernel {ms} ms/launch, plain "
-        f"{plain_ms} ms/launch, bound {bound} ms ({by}); move matrix "
-        f"{moves.numel()} bytes to the host in {copy_s} s, host traceback "
-        f"{traceback_s} s")
+        f"reads 650-750 bp, W={args[2]}, {args[3]} diagonals, {cells} "
+        f"cells, {nbytes} bytes needed): {json.dumps(row)}")
     log(f"full DP entry point sg_align_batch_full at the polish shape: "
-        f"{launches} launch(es), {F.PAIRS} pairs, wall {entry_s} s, op "
-        f"streams == native band-0 DP")
-    return launches, dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound, bound_by=by)
+        f"{launches} launch(es), {launched_pairs} pairs, wall {entry_s} s, op "
+        f"streams == native band-0 DP, {trace['copied'].get('DtoH')} bytes "
+        f"to the host (endpoint rows and op streams only)")
+    return launches, dict(max_abs_err=max_err, **row)
 
 
 def warm_native():
@@ -862,8 +1005,9 @@ def main(argv=None):
     ap.add_argument("--times-only", action="store_true",
                     help="build, then time the stats and moves kernels at "
                          "their shapes (phase 2d without the plain "
-                         "versions) and stop: run from another checkout's "
-                         "root to time its kernels")
+                         "versions) and the full DP's entry point at the "
+                         "polish shape, and stop: run from another "
+                         "checkout's root to time its kernels")
     opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "ngspeciesid_tpu_torch")):
@@ -894,20 +1038,23 @@ def main(argv=None):
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     log(f"card: {smi.splitlines()[0]}")
+    from ngspeciesid_tpu_torch.ops import align_full as F
+
     if opts.times_only:
         phase_kernel_times(A, M, dev, plain=False)
-        return 0
+        import numpy as np
 
-    from ngspeciesid_tpu_torch.ops import align_full as F
+        time_full_entry(F, np.random.default_rng(2))
+        return 0
 
     t0 = time.perf_counter()
     warm_native()
     log(f"native engine build and load: {time.perf_counter() - t0} s")
     stats_err = phase_stats_kernel(A, dev)
     moves_err = phase_moves_kernel(A, M, dev)
-    full_launches, full = phase_full_dp_kernel(F, dev)
+    full_launches, full = phase_full_dp_kernel(F, M, dev)
     times = phase_kernel_times(A, M, dev)
-    phase_geometry_sweep(A, M, dev)
+    phase_geometry_sweep(A, M, F, dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         pool20k = os.path.join(work, "pool20k.fastq")

@@ -1,182 +1,95 @@
-// Full (unbanded) semi-global Gotoh DP: the whole packed move matrix of each
-// pair in diagonal layout, and its endpoint trackers.
+// Full (unbanded) semi-global Gotoh DP with an on-device traceback: one op
+// stream per pair.
 //
 // Replaces the TPU kernel ngspeciesid_tpu/ops/align_pallas.py (_kernel,
-// launched by _pallas_dp) with the same int32 semantics.  For each pair it
-// writes one move byte per cell into moves (B, n + m, L) uint8, cell (i, j)
-// at [i + j - 1, i]: the chosen H layer in bits 0-1 (DIAG 1, UP 2, LEFT 3),
-// the E-open bit 2 and the F-open bit 3 for interior cells, 0 elsewhere; and
-// [row_best, row_j, col_best, col_i] into best (B, 4) int32.  The host
-// traces the moves back (ops/align.py::traceback_moves through
-// ops/align_full.py::row_view).
+// launched by _pallas_dp) with the same int32 recurrence, move bits,
+// tie-breaks and endpoint rule.  The TPU kernel ships the whole move matrix
+// to the host, which traces it back (_traceback_diag); this kernel traces
+// on the card and writes, per pair, the endpoint trackers into best (B, 16)
+// int32 (row score, j, diagonal at columns 0-2; column score, i, diagonal
+// at columns 8-10; zeros elsewhere) and one op per anti-diagonal of the
+// optimal path into ops (B, d_max + 1) uint8 (DIAG 1, UP 2, LEFT 3; 0
+// elsewhere).  ops/align_moves.py::_reconstruct adds the terminal gaps on
+// the host.
 //
-// What bounds it on an H100: not FLOPs.  A pair is a chain of len1 + len2
-// anti-diagonals, each depending on the two before it, so the sweep is
-// latency-bound (one __syncthreads per diagonal).  The least time for the
-// work itself is set by its integer operations, about 13 per cell, ahead of
-// its bytes, one move byte per cell; this kernel also writes the padding of
-// the diagonal layout (every lane of every diagonal), which the work does
-// not need.
+// What bounds it on an H100: the integer operations of the cells (~13 per
+// cell over len1 x len2 cells), then the move byte of every cell, which
+// must reach device memory before the traceback can start.  The sweep
+// itself is a chain of len1 + len2 dependent anti-diagonals per pair, so
+// what it takes in practice is the instructions a thread issues per
+// diagonal.
 //
-// Design:
-//   * One thread block per pair, threads along the lane index i = 0..L-1
-//     (at most 1024 threads; a thread owns lanes t, t + T, ..., at most 8).
-//   * E comes from the same lane on the previous diagonal, so each thread
-//     keeps its lanes' E in registers.  H at dd-1 and dd-2, and F at dd-1,
-//     come from lane i - 1: they are shared-memory rows, rotated over three
-//     H and two F buffers, so that the row diagonal dd writes is one that no
-//     thread reads on dd, and one __syncthreads per diagonal suffices.
-//   * s1 and s2 are staged in shared memory and s2 is indexed directly at
-//     j - 1; the TPU's reversed, padded s2 row and its dynamic lane roll
-//     were a TPU tactic and are gone.  H is NEG outside the pair's cells;
-//     E and F are not masked, as on the TPU.
-//   * The last-row cell of a diagonal is lane len1 and the last-column cell
-//     lane dd - len2: the one thread owning each updates a block tracker in
-//     shared memory with ">=" (the later diagonal wins ties).
-//   * Each diagonal's L move bytes are written as one coalesced row.  A
-//     block stops at its pair's last diagonal len1 + len2 and zeroes the
-//     remaining rows with 4-byte stores (L is a multiple of 128).
+// Design: the full DP is wavefront.cuh's sweep in a fixed frame with the
+// moves kernel's policy, moves_policy.cuh's MovesK<true>: the window is
+// W = lanes_for(n) lanes (a multiple of 128, > every len1) with base 0 on
+// every diagonal, so lane l is row i = l, and that is a compile-time
+// property of the instantiation: no schedule is read (base is null), no
+// band bounds are computed, only the unshifted step is instantiated, and
+// the traceback takes the path's lane to be its row.  Register mode (L = 2,
+// 4 or 8 lanes per thread in registers, neighbour cells by warp shuffles, a
+// named barrier of the pair's warps only) covers W <= 4096: a warp whose
+// rows [r0, r0 + 32 L) hold no cell of diagonal d (d < r0, or d past
+// r0 + 32 L - 1 + len2, or r0 > len1: about a third of the warp-diagonals
+// at the polish shape) skips the cells and only publishes its edge and
+// meets its barrier (1.221 ms per 512-pair polish launch against 1.452
+// with every warp computing every diagonal, on an H100 80GB HBM3 at 700 W,
+// chip_smoke.py phase 2c, PERF.md); memory mode (the state in a global
+// slab) covers wider windows, so any s1 length runs.
+// The move store is device scratch that the caller allocates and never
+// copies to the host: only best and ops leave the card, O(n + m) bytes a
+// pair instead of the (n + m) x W move matrix.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (ops/cuda_lib.py), loaded with ctypes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "moves_policy.cuh"
 
 namespace {
 
-constexpr int kNeg = -(1 << 30);   // ops/align.py NEG_INF
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxLanesPerThread = 8;
-constexpr uint8_t kDiag = 1, kUp = 2, kLeft = 3;
-
-// s1: (B, n) uint8; s2: (B, m) uint8; meta: (B, 3) int32 rows
-// [len1, len2, gap_open]; moves: (B, n + m, L) uint8; best: (B, 4) int32.
-__global__ void __launch_bounds__(kMaxThreads)
-full_dp_kernel(const uint8_t* __restrict__ s1, const uint8_t* __restrict__ s2,
-               const int* __restrict__ meta, uint8_t* __restrict__ moves,
-               int* __restrict__ best, int n, int m, int L, int match,
-               int mismatch, int gap_ext) {
-  extern __shared__ int smem[];
-  __shared__ int trk[4];   // row score, j | column score, i
-
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int T = blockDim.x;
-  const int len1 = meta[b * 3];
-  const int len2 = meta[b * 3 + 1];
-  const int gopen = meta[b * 3 + 2];
-  int* Hbuf = smem;                 // 3 rows of L: diagonal dd at dd % 3
-  int* Fbuf = smem + 3 * L;         // 2 rows of L: diagonal dd at dd & 1
-  uint8_t* s1s = reinterpret_cast<uint8_t*>(smem + 5 * L);  // lane i: s1[i-1]
-  uint8_t* s2s = s1s + L;                                   // s2[0..len2)
-  const size_t D = static_cast<size_t>(n) + m;
-  uint8_t* mv = moves + static_cast<size_t>(b) * D * L;
-
-  // diagonal 0 (H slot 0) holds only cell (0, 0), score 0; diagonal -1
-  // (slot 2) and F of diagonal 0 (slot 0) are unreachable
-  for (int l = t; l < L; l += T) {
-    Hbuf[l] = l == 0 ? 0 : kNeg;
-    Hbuf[L + l] = kNeg;
-    Hbuf[2 * L + l] = kNeg;
-    Fbuf[l] = kNeg;
-    Fbuf[L + l] = kNeg;
-    s1s[l] = (l >= 1 && l <= len1) ? s1[static_cast<size_t>(b) * n + l - 1]
-                                   : 0;
-  }
-  for (int k = t; k < len2; k += T) {
-    s2s[k] = s2[static_cast<size_t>(b) * m + k];
-  }
-  if (t < 4) trk[t] = (t % 2 == 0) ? kNeg : 0;
-  int e[kMaxLanesPerThread];
-#pragma unroll
-  for (int k = 0; k < kMaxLanesPerThread; ++k) e[k] = kNeg;
-  __syncthreads();
-
-  const int last = len1 + len2;
-  for (int dd = 1; dd <= last; ++dd) {
-    int* Hc = Hbuf + (dd % 3) * L;
-    const int* H1 = Hbuf + ((dd + 2) % 3) * L;
-    const int* H2 = Hbuf + ((dd + 1) % 3) * L;
-    int* Fc = Fbuf + (dd & 1) * L;
-    const int* F1 = Fbuf + ((dd + 1) & 1) * L;
-    uint8_t* row = mv + static_cast<size_t>(dd - 1) * L;
-#pragma unroll
-    for (int k = 0; k < kMaxLanesPerThread; ++k) {
-      const int i = t + k * T;
-      if (i < L) {
-        const int j = dd - i;
-        const bool valid = i <= len1 && j >= 0 && j <= len2;
-        const bool boundary = i == 0 || j == 0;
-        const bool interior = valid && !boundary;
-        // E: gap in s1 (left), predecessor (i, j-1) in this lane
-        const int e_open = H1[i] - gopen;
-        const int e_ext = e[k] - gap_ext;
-        const int ev = max(e_open, e_ext);
-        // F: gap in s2 (up), predecessor (i-1, j) in lane i - 1
-        const int f_open = (i == 0 ? kNeg : H1[i - 1]) - gopen;
-        const int f_ext = (i == 0 ? kNeg : F1[i - 1]) - gap_ext;
-        const int fv = max(f_open, f_ext);
-        // diagonal: (i-1, j-1) on diagonal dd-2 plus the substitution score
-        const int sub = (interior && s1s[i] == s2s[j - 1]) ? match : mismatch;
-        const int g = (i == 0 ? kNeg : H2[i - 1]) + sub;
-
-        const int h_no_e = max(g, fv);
-        int h = boundary ? 0 : max(h_no_e, ev);
-        if (!valid) h = kNeg;
-        const uint8_t layer = ev > h_no_e ? kLeft : (fv > g ? kUp : kDiag);
-        Hc[i] = h;
-        Fc[i] = fv;
-        e[k] = ev;
-        row[i] = interior
-                     ? static_cast<uint8_t>(layer | ((e_open >= e_ext) << 2) |
-                                            ((f_open >= f_ext) << 3))
-                     : 0;
-        if (valid && i == len1 && h >= trk[0]) {
-          trk[0] = h;
-          trk[1] = j;
-        }
-        if (valid && j == len2 && h >= trk[2]) {
-          trk[2] = h;
-          trk[3] = i;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // rows of diagonals past this pair's last hold no cell
-  uint32_t* zero = reinterpret_cast<uint32_t*>(mv + static_cast<size_t>(last) * L);
-  const size_t words = (D - last) * L / 4;
-  for (size_t w = t; w < words; w += T) zero[w] = 0;
-  if (t < 4) best[static_cast<size_t>(b) * 4 + t] = trk[t];
-}
+using FullK = wf_moves::MovesK<true>;
 
 }  // namespace
 
 extern "C" {
 
-// Launches one block per pair on `stream`.  L (a multiple of 128, at least
-// n + 1 and at most 1024 * 8) is the lane count; `moves` holds
-// B * (n + m) * L bytes and `best` B * 4 int32.  Returns the CUDA error of
-// the shared-memory setting or cudaGetLastError() after the launch.
-int ngsid_full_dp_launch(const void* s1, const void* s2, const void* meta,
-                         void* moves, void* best, int B, int n, int m, int L,
-                         int match, int mismatch, int gap_ext, void* stream) {
-  if (B <= 0) return 0;
-  if (L % 128 != 0 || L < n + 1 || L > kMaxThreads * kMaxLanesPerThread) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int smem_bytes = 5 * L * static_cast<int>(sizeof(int)) + L + m;
-  const cudaError_t err = cudaFuncSetAttribute(
-      full_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = L < kMaxThreads ? L : kMaxThreads;
-  full_dp_kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(s1), static_cast<const uint8_t*>(s2),
-      static_cast<const int*>(meta), static_cast<uint8_t*>(moves),
-      static_cast<int*>(best), n, m, L, match, mismatch, gap_ext);
-  return static_cast<int>(cudaGetLastError());
+// Launches the full DP and traceback of B pairs on `stream`: lanes per
+// thread (2, 4 or 8; memory == 0) or memory mode (memory == 1, lanes 1,
+// warps 8, pairs 1, scratch of B * ngsid_moves_state_ints(W) int32),
+// `warps` warps per pair and `pairs` pairs per block
+// (ops/cuda_lib.py::launch_geometry("moves", ...)).  pool: uint8
+// sequences; pm: (B, 8) int64 rows [len1, len2, gap_open, -, -, off1, off2,
+// -]; W > every len1 and d_max >= every len1 + len2.  `store` holds
+// B * (d_max + 1) * W bytes of scratch; `ops` holds B * (d_max + 1) zeroed
+// bytes; `best` B * 16 int32.  trace == 0 skips the traceback (ops stay
+// zero): the forward sweep's time alone.  Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a geometry the kernel does not
+// take.
+int ngsid_full_dp_launch(const void* pool, const void* pm, void* store,
+                         void* ops, void* best, void* scratch, int B, int W,
+                         int d_max, int match, int mismatch, int gap_ext,
+                         int lanes, int warps, int pairs, int memory,
+                         int trace, void* stream) {
+  wf::Launch a{};
+  a.pool = static_cast<const uint8_t*>(pool);
+  a.pm = static_cast<const long long*>(pm);
+  a.base = nullptr;
+  a.out = static_cast<int*>(best);
+  a.store = static_cast<uint8_t*>(store);
+  a.ops = static_cast<uint8_t*>(ops);
+  a.scratch = static_cast<int*>(scratch);
+  a.B = B;
+  a.W = W;
+  a.dmax = d_max;
+  a.dpad = d_max + 1;
+  a.band = 0;
+  a.match = match;
+  a.mismatch = mismatch;
+  a.gap_ext = gap_ext;
+  a.nw = warps;
+  a.pairs = pairs;
+  a.trace = trace;
+  return wf::launch<FullK, 2, 4, 8>(a, lanes, memory, wf_moves::kTraceBytes,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

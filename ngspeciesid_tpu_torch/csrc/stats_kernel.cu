@@ -105,6 +105,7 @@ struct StatsK {
   using St = Steps<kPacked>;
   static constexpr int kFields = 3 + St::kInts;
   static constexpr bool kMoves = false;
+  static constexpr bool kFixed = false;
 
   int gopen, gap_ext, match, mismatch, k, mid;
   unsigned one;  // the newest hist bit: hist is kept in the top k bits

@@ -1,11 +1,15 @@
-// The banded anti-diagonal wavefront shared by stats_kernel.cu and
-// moves_kernel.cu: a semi-global Gotoh DP per pair, swept one anti-diagonal
-// at a time through a window of W lanes whose origin base[d] the host
-// schedules per chunk (ops/align_stats.py::_window_schedule; band 0 is the
-// exact full DP).  Lane l of diagonal d holds cell (i, j) = (base[d] + l,
-// d - i).  Each kernel supplies a policy K: its cell type (K::Cell), the
-// recurrence of one cell (K::cell), the boundary cell (K::boundary) and what
-// it does at the end of a pair (K::finish).
+// The banded anti-diagonal wavefront shared by stats_kernel.cu,
+// moves_kernel.cu and full_dp_kernel.cu: a semi-global Gotoh DP per pair,
+// swept one anti-diagonal at a time through a window of W lanes whose
+// origin base[d] the host schedules per chunk
+// (ops/align_stats.py::_window_schedule; band 0 is the exact full DP).
+// Lane l of diagonal d holds cell (i, j) = (base[d] + l, d - i).  Each
+// kernel supplies a policy K: its cell type (K::Cell), the recurrence of one
+// cell (K::cell), the boundary cell (K::boundary), what it does at the end
+// of a pair (K::finish), and whether its frame is fixed (K::kFixed: base 0
+// on every diagonal and band 0, known at compile time, so the sweep reads
+// no schedule, computes no band bounds and instantiates only the unshifted
+// step; the window must then cover rows 0..len1 of every pair).
 //
 // What bounds the sweep on an H100: neither bytes nor operations.  A pair
 // is a chain of len1 + len2 diagonals, each depending on the two before
@@ -84,7 +88,7 @@ constexpr int kNoCol = 257;                // s2 base of a column outside 1..len
 struct Launch {
   const uint8_t* pool;
   const long long* pm;   // (B, 8) [len1, len2, gap_open, k, match_id, off1, off2, 0]
-  const int* base;       // window origin per diagonal
+  const int* base;       // window origin per diagonal (unread: fixed frame)
   int* out;              // stats: (B, 16) rows; moves: (B, 16) best
   uint8_t* store;        // moves: (B, dmax + 1, W) move bytes
   uint8_t* ops;          // moves: (B, dpad) op streams, zeroed by the caller
@@ -443,28 +447,46 @@ __device__ __forceinline__ void sweep_registers(
   pair_sync(p);
 
   const int D = p.tot;
+  const int band = K::kFixed ? 0 : a.band;
   Band bd{};
-  if (a.band > 0) bd.init(p, a.band, 1);
+  if (band > 0) bd.init(p, band, 1);
   Schedule sc;
-  sc.init(a, D, lane);
+  if constexpr (!K::kFixed) sc.init(a, D, lane);
   int bs = 0;                                // base[dd]; base[0] == 0
-  const int d11 = sc.shifts(1) & 1;
+  const int d11 = K::kFixed ? 0 : sc.shifts(1) & 1;
+  // fixed frame: the diagonals on which the warp's rows [r0, r0 + 32 L)
+  // hold a cell of the pair, [r0, r0 + 32 L - 1 + len2] while r0 <= len1
+  const int r0 = w * 32 * L;
+  const int act_lo = r0 <= p.len1 ? r0 : D + 1;
+  const int act_hi = r0 + 32 * L - 1 + p.len2;
   int eb = edge_base<L>(p, w, lane, 1, d11, d11);
   for (int dd = 1; dd <= D; ++dd) {
-    if (dd > 1 && ((dd - 1) & 31) == 0) sc.advance(a, D, (dd - 1) >> 5, lane);
-    const unsigned shift = sc.shifts(dd);
+    if (!K::kFixed && dd > 1 && ((dd - 1) & 31) == 0) {
+      sc.advance(a, D, (dd - 1) >> 5, lane);
+    }
+    const unsigned shift = K::kFixed ? 0u : sc.shifts(dd);
     const int d1 = shift & 1;
     const int d1n = shift >> 1;
     bs += d1;
     const int ebn = edge_base<L>(p, w, lane, dd + 1, bs + d1n, d1n);
-    const Diag g = diag(p, bd, a.band, dd, bs);
-    if (d1) {
+    const Diag g = diag(p, bd, band, dd, bs);
+    if constexpr (K::kFixed) {
+      // a warp outside [act_lo, act_hi] computes no cell that reaches one
+      // of the matrix (the recurrence flows to larger i and j only); its
+      // state and halo stay as they were, which differs from the sweep's
+      // only in E and F far below any score of the matrix
+      if (dd >= act_lo && dd <= act_hi) {
+        reg_step<K, L, 0>(k, a, p, g, s, eb, 0, sh, warp, w, lane, row, col);
+      } else if (a.nw > 1) {
+        publish<K, L>(a, sh, s, dd, warp, lane, false, true);
+      }
+    } else if (d1) {
       reg_step<K, L, 1>(k, a, p, g, s, eb, d1n, sh, warp, w, lane, row, col);
     } else {
       reg_step<K, L, 0>(k, a, p, g, s, eb, d1n, sh, warp, w, lane, row, col);
     }
     if (a.nw > 1) pair_sync(p);
-    if (a.band > 0) bd.next(p);
+    if (band > 0) bd.next(p);
     eb = ebn;
   }
 }
@@ -527,21 +549,26 @@ __device__ __forceinline__ void sweep_memory(
   }
   pair_sync(p);
   const int D = p.len1 + p.len2;
+  const int band = K::kFixed ? 0 : a.band;
   Band bd{};
-  if (a.band > 0) bd.init(p, a.band, 1);
-  int b2 = __ldg(a.base);
+  if (band > 0) bd.init(p, band, 1);
+  int b2 = K::kFixed ? 0 : __ldg(a.base);
   int b1 = b2;
   for (int dd = 1; dd <= D; ++dd) {
-    const int bs = __ldg(a.base + dd);
-    const Diag g = diag(p, bd, a.band, dd, bs);
-    switch ((bs - b1) * 2 + (b1 - b2)) {
-      case 0: mem_step<K, 0, 0>(k, a, p, g, st, row, col); break;
-      case 1: mem_step<K, 0, 1>(k, a, p, g, st, row, col); break;
-      case 2: mem_step<K, 1, 1>(k, a, p, g, st, row, col); break;
-      default: mem_step<K, 1, 2>(k, a, p, g, st, row, col); break;
+    const int bs = K::kFixed ? 0 : __ldg(a.base + dd);
+    const Diag g = diag(p, bd, band, dd, bs);
+    if constexpr (K::kFixed) {
+      mem_step<K, 0, 0>(k, a, p, g, st, row, col);
+    } else {
+      switch ((bs - b1) * 2 + (b1 - b2)) {
+        case 0: mem_step<K, 0, 0>(k, a, p, g, st, row, col); break;
+        case 1: mem_step<K, 0, 1>(k, a, p, g, st, row, col); break;
+        case 2: mem_step<K, 1, 1>(k, a, p, g, st, row, col); break;
+        default: mem_step<K, 1, 2>(k, a, p, g, st, row, col); break;
+      }
     }
     pair_sync(p);
-    if (a.band > 0) bd.next(p);
+    if (band > 0) bd.next(p);
     b2 = b1;
     b1 = bs;
   }

@@ -143,11 +143,23 @@ def _moves_rows_cuda(pool, pm, base, W, d_max, band, match, mismatch,
 
 def moves_rows_plain(pool, pm, base, W, d_max, band, match=2, mismatch=-2,
                      gap_ext=1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the moves DP: the same wavefront over (B, W)
-    int32 tensors, one Python step per anti-diagonal, the move store a
-    (B, d_max + 1, W) uint8 tensor, then the traceback vectorized over the
-    batch, one path cell per step."""
+    """Plain PyTorch version of the moves DP: :func:`moves_plain`'s
+    ``best`` and ``ops``, counted as a plain launch."""
     global PLAIN_LAUNCHES, PLAIN_PAIRS
+    best, ops, _ = moves_plain(pool, pm, base, W, d_max, band, match,
+                               mismatch, gap_ext)
+    PLAIN_LAUNCHES += 1
+    PLAIN_PAIRS += pm.shape[0]
+    return best, ops
+
+
+def moves_plain(pool, pm, base, W, d_max, band, match=2, mismatch=-2,
+                gap_ext=1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The moves DP in plain PyTorch, uncounted: the same wavefront over
+    (B, W) int32 tensors, one Python step per anti-diagonal, the move store
+    a (B, d_max + 1, W) uint8 tensor, then the traceback vectorized over the
+    batch, one path cell per step.  Returns ``best``, ``ops`` and the move
+    store (lane l of diagonal d at ``store[:, d, l]``)."""
     dev = pool.device
     i32, i64 = torch.int32, torch.int64
     B = pm.shape[0]
@@ -222,10 +234,7 @@ def moves_rows_plain(pool, pm, base, W, d_max, band, match=2, mismatch=-2,
         best[:, c0] = top[sl].to(i32)
         best[:, c0 + 1] = coord[sl].to(i32)
         best[:, c0 + 2] = pick[sl].to(i32)
-    ops = _walk_plain(store, base, best, pm, W)
-    PLAIN_LAUNCHES += 1
-    PLAIN_PAIRS += B
-    return best, ops
+    return best, _walk_plain(store, base, best, pm, W), store
 
 
 def _walk_plain(store, base, best, pm, W) -> torch.Tensor:

@@ -114,24 +114,29 @@ def device_pool(device: torch.device) -> SeqPool:
 # the DP: kernel wrapper and its plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def check_chunk(pool: torch.Tensor, pm: torch.Tensor, base: torch.Tensor,
-                W: int, d_max: int) -> None:
+def check_chunk(pool: torch.Tensor, pm: torch.Tensor,
+                base: Optional[torch.Tensor], W: int, d_max: int) -> None:
     """Raise ValueError unless a chunk's inputs are what the kernels take:
     a contiguous 1-D uint8 pool, a contiguous (B, 8) int64 pair table and a
-    contiguous int32 window schedule of at least d_max + 1 diagonals, on
-    one device, with a positive window width."""
+    contiguous int32 window schedule of at least d_max + 1 diagonals (None:
+    a fixed frame, which reads none), on one device, with a positive window
+    width."""
     if pool.dtype != torch.uint8 or pool.dim() != 1 or not pool.is_contiguous():
         raise ValueError("pool must be a contiguous 1-D uint8 tensor")
     if pm.dtype != torch.int64 or pm.dim() != 2 or pm.shape[1] != 8 \
             or not pm.is_contiguous():
         raise ValueError("pm must be a contiguous (B, 8) int64 tensor")
+    if W <= 0:
+        raise ValueError(f"window width must be positive, got {W}")
+    if pool.device != pm.device:
+        raise ValueError("pool and pm must be on one device")
+    if base is None:
+        return
     if base.dtype != torch.int32 or base.dim() != 1 or not base.is_contiguous():
         raise ValueError("base must be a contiguous 1-D int32 tensor")
     if base.numel() <= d_max:
         raise ValueError(f"base holds {base.numel()} diagonals, need {d_max + 1}")
-    if W <= 0:
-        raise ValueError(f"window width must be positive, got {W}")
-    if not (pool.device == pm.device == base.device):
+    if base.device != pool.device:
         raise ValueError("pool, pm and base must be on one device")
 
 

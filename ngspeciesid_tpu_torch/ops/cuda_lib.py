@@ -14,6 +14,7 @@ import ctypes
 import functools
 import glob
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -107,7 +108,7 @@ SIGNATURES = {
     "ngsid_stats_launch": ([_vp] * 5 + [_ci] * 11 + [_vp], _ci),
     "ngsid_moves_state_ints": ([_ci], _ci),
     "ngsid_moves_launch": ([_vp] * 7 + [_ci] * 13 + [_vp], _ci),
-    "ngsid_full_dp_launch": ([_vp] * 5 + [_ci] * 7 + [_vp], _ci),
+    "ngsid_full_dp_launch": ([_vp] * 6 + [_ci] * 11 + [_vp], _ci),
     "ngsid_error_string": ([_ci], ctypes.c_char_p),
 }
 
@@ -130,7 +131,8 @@ def load() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 #: Lanes per thread of each kernel's register-mode instantiations, fewest
-#: first (csrc/stats_kernel.cu, csrc/moves_kernel.cu).
+#: first (csrc/stats_kernel.cu; csrc/moves_kernel.cu, whose geometries the
+#: full DP, csrc/full_dp_kernel.cu, shares).
 REGISTER_LANES = {"stats": (2, 4), "moves": (2, 4, 8)}
 #: Threads per block at most (wf::kMaxBlockThreads); pairs per block at
 #: most (wf::kMaxPairs), 15 when a pair spans several warps (named barriers
@@ -145,10 +147,16 @@ MEM_THREADS = 256
 #: geometry sweep at all four timed shapes (stats at 4096 and 128 pairs,
 #: moves at 512 and 100; H100 80GB HBM3 at 700 W, PERF.md).
 BUSY_THREADS_PER_SM = 128
-#: Threads per block that pairs are packed to when a launch has more pairs
-#: than the card has SMs (the sweep's best at the stats kernel's 4096-pair
-#: shape, 4 lanes x 2 warps x 2 pairs; H100 80GB HBM3 at 700 W, PERF.md).
-PACK_THREADS = 128
+#: Warps per block that pairs are packed to a multiple of, when a launch has
+#: more pairs than the card has SMs and the pairs fit one block: one warp
+#: for each of an SM's four schedulers (the sweep's best at the stats
+#: kernel's 4096-pair shape, 4 lanes x 2 warps x 2 pairs, and at the full
+#: DP's 512-pair polish shape, 8 lanes x 3 warps x 4 pairs; timed on the
+#: moves kernel's 384-lane window too, 4 lanes x 3 warps at 256 and 512
+#: pairs; H100 80GB HBM3 at 700 W, PERF.md).  Beside the rule of 128
+#: threads a block it replaced, it changes only the moves kernel's windows
+#: of 384, 768 and 1536 lanes.
+PACK_WARPS = 4
 
 
 class Geometry(NamedTuple):
@@ -186,7 +194,8 @@ def launch_geometry(kind: str, W: int, B: int, sms: int) -> Geometry:
     the fewest lanes per thread, so that each diagonal is a short chain;
     many pairs: more lanes per thread while the threads would exceed what
     the SMs keep busy.  Pairs per block: one while the pairs fit one per
-    SM, then up to PACK_THREADS threads."""
+    SM, then the fewest that make a multiple of PACK_WARPS warps, if they
+    fit a block."""
     fits = [g.lanes for g in geometries(kind, W) if not g.memory]
     if not fits:
         return geometries(kind, W)[-1]
@@ -196,8 +205,10 @@ def launch_geometry(kind: str, W: int, B: int, sms: int) -> Geometry:
             lanes = more
     warps = W // (32 * lanes)
     per_sm = -(-B // max(sms, 1))
-    pairs = max(1, min(PACK_THREADS // (32 * warps), per_sm))
-    return Geometry(lanes, warps, pairs, False)
+    pack = PACK_WARPS // math.gcd(PACK_WARPS, warps)
+    if pack * warps * 32 > block_threads(kind, lanes):
+        pack = 1
+    return Geometry(lanes, warps, max(1, min(pack, per_sm)), False)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,14 +1,17 @@
 """The port's full DP (ngspeciesid_tpu_torch.ops.align_full) against the
 JAX package.
 
-On the CPU the port runs the full-DP kernel's plain PyTorch version.  Its
-moves (``moves[:, :n+m, :n+1]``) and endpoint rows (``best[:, :4]``) must
-equal, bit for bit, those of the Pallas ``_kernel`` through ``_pallas_dp``
-in interpret mode on the same batch; and the op streams of
-``sg_align_batch_full(device=cpu)`` must equal both
+On the CPU the port runs the full-DP kernel's plain PyTorch version, the
+moves DP's plain version in the fixed full frame.  Its move store (masked
+to the interior cells) and endpoint rows must equal, bit for bit, the raw
+move words and ``best[:, :4]`` of the Pallas ``_kernel`` through
+``_pallas_dp`` in interpret mode on the same batch; and the op streams of
+``sg_align_batch_full(device=cpu)``, reconstructed from the plain
+version's ``best`` and ``ops``, must equal both
 ``sg_align_batch_pallas(interpret=True)`` and the port's numpy oracle.
 Tolerance: none, every comparison is exact.  The CUDA kernel is held
-against the same plain version on the card by chip_smoke.py.
+against the same plain version on the card by chip_smoke.py, and its
+source under a CPU emulation by tests/test_torch_cuda_emulated.py.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 from ngspeciesid_tpu.ops import align_pallas as ref
 from ngspeciesid_tpu_torch.ops import align_full as port
 from ngspeciesid_tpu_torch.ops.align import sg_align_batch
+from ngspeciesid_tpu_torch.ops.align_moves import moves_plain
 
 CPU = torch.device("cpu")
 POA = dict(match=2, mismatch=-2, gap_ext=1)
@@ -114,14 +118,26 @@ def test_full_dp_bit_equal_to_pallas(rng, case):
     m = max(b.size for _, b in pairs)
 
     want_moves, want_best = pallas_rows(pairs, opens, **sc)
-    moves, best = port.full_dp_rows(*port.stage_pairs(pairs, opens, CPU), **sc)
-    assert moves.dtype == torch.uint8 and best.dtype == torch.int32
-    assert tuple(moves.shape) == (len(pairs), n + m, port.lanes_for(n))
-    got = moves.numpy().astype(np.int32)
-    assert np.array_equal(got[:, : n + m, : n + 1],
-                          want_moves[:, : n + m, : n + 1])
-    assert not got[:, :, n + 1:].any()
-    assert np.array_equal(best.numpy(), want_best[:, :4])
+    pool, pm, W, d_max, _, _ = port.stage_pairs(pairs, opens, CPU)
+    assert (W, d_max) == (port.lanes_for(n), n + m)
+    base = torch.zeros(d_max + 1, dtype=torch.int32)
+    best, ops, store = moves_plain(pool, pm, base, W, d_max, 0, **sc)
+    assert store.dtype == torch.uint8 and best.dtype == torch.int32
+    assert tuple(store.shape) == (len(pairs), n + m + 1, W)
+    # cell (i, j) of diagonal dd = i + j: the store's [dd, i], the Pallas
+    # kernel's [dd - 1, i] (0 outside the interior cells)
+    i = np.arange(n + 1)[None, None, :]
+    j = np.arange(1, n + m + 1)[None, :, None] - i
+    len1 = pm[:, 0].numpy()[:, None, None]
+    len2 = pm[:, 1].numpy()[:, None, None]
+    interior = (i >= 1) & (i <= len1) & (j >= 1) & (j <= len2)
+    got = np.where(interior, store.numpy()[:, 1:, : n + 1].astype(np.int32), 0)
+    assert np.array_equal(got, want_moves[:, : n + m, : n + 1])
+    assert np.array_equal(best.numpy()[:, [0, 1, 8, 9]], want_best[:, :4])
+    # the wrapper's plain version is the same DP and walk
+    got_best, got_ops = port.full_dp_rows(pool, pm, W, d_max, **sc)
+    assert torch.equal(got_best, best) and torch.equal(got_ops, ops)
+    assert tuple(got_ops.shape) == (len(pairs), n + m + 1)
 
     port.reset_counts()
     streams = port.sg_align_batch_full(pairs, opens, device=CPU, **sc)
@@ -137,7 +153,7 @@ def test_full_dp_bit_equal_to_pallas(rng, case):
 def test_batch_is_chunked_under_the_store_cap(rng, monkeypatch):
     pairs, opens = batch_of_11(rng)
     want = port.sg_align_batch_full(pairs, opens, device=CPU)
-    monkeypatch.setattr(port, "MAX_STORE_BYTES", 3 * (30 + 33) * 128)
+    monkeypatch.setattr(port, "MAX_STORE_BYTES", 3 * (30 + 33 + 1) * 128)
     port.reset_counts()
     got = port.sg_align_batch_full(pairs, opens, device=CPU)
     assert port.PLAIN_LAUNCHES == 4
@@ -156,10 +172,28 @@ def test_default_device_follows_the_backend(rng, monkeypatch):
         port.sg_align_batch_full(pairs[:2], opens[:2])
 
 
-def test_wrapper_refuses_bad_inputs():
-    s1 = torch.zeros((2, 5), dtype=torch.uint8)
-    s2 = torch.zeros((2, 7), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="meta"):
-        port.full_dp_rows(s1, s2, torch.zeros((2, 2), dtype=torch.int32))
-    with pytest.raises(TypeError):
-        port.full_dp_rows(s1.int(), s2, torch.zeros((2, 3), dtype=torch.int32))
+def test_wrapper_refuses_bad_inputs(rng):
+    pool, pm, W, d_max, _, _ = port.stage_pairs(*batch_of_11(rng), CPU)
+    with pytest.raises(ValueError, match="pm"):
+        port.full_dp_rows(pool, pm[:, :3].contiguous(), W, d_max)
+    with pytest.raises(ValueError, match="pm"):
+        port.full_dp_rows(pool, pm.int(), W, d_max)
+    with pytest.raises(ValueError, match="pool"):
+        port.full_dp_rows(pool.int(), pm, W, d_max)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        port.full_dp_rows(pool, pm, W + 8, d_max)
+
+
+def test_s1_above_8191_bytes(rng):
+    """An s1 longer than 8,191 bytes (the cap of an earlier kernel of 8,192
+    lanes) runs, as it does in sg_align_batch_pallas: on the card in memory
+    mode (W 8320), here through the plain version."""
+    a = rand_seq(rng, 8200)
+    b = a[3000:3040].copy()
+    b[::7] = rand_seq(rng, b[::7].size)
+    pairs, opens = [(a, b)], [3]
+    port.reset_counts()
+    got = port.sg_align_batch_full(pairs, opens, device=CPU)
+    assert (port.PLAIN_LAUNCHES, port.PLAIN_PAIRS) == (1, 1)
+    want = sg_align_batch(pairs, opens, backend="numpy")
+    assert got[0].tolist() == want[0].tolist()

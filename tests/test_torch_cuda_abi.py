@@ -90,12 +90,15 @@ def test_geometry_constants_equal_the_sources():
     assert int(constant("wavefront.cuh", "kMaxPairs")) == cuda_lib.MAX_PAIRS
     assert int(constant("wavefront.cuh", "kMemThreads")) == \
         cuda_lib.MEM_THREADS
-    for kind_, (path, policy) in {"stats": ("stats_kernel.cu", "StatsK"),
-                                  "moves": ("moves_kernel.cu", "MovesK")
-                                  }.items():
+    # the full DP launches with the moves kernel's geometries
+    for kind_, path, policy in (("stats", "stats_kernel.cu", "StatsK"),
+                                ("moves", "moves_kernel.cu", "MovesK"),
+                                ("moves", "full_dp_kernel.cu", "FullK")):
         src = open(os.path.join(CSRC, path)).read()
-        for lanes in re.findall(rf"wf::launch<{policy}(?:<\w+>)?, ([\d, ]+)>",
-                                src):
+        found = re.findall(rf"wf::launch<{policy}(?:<\w+>)?, ([\d, ]+)>",
+                           src)
+        assert found, path
+        for lanes in found:
             assert tuple(int(x) for x in lanes.split(",")) == \
                 cuda_lib.REGISTER_LANES[kind_]
     # wf::block_threads: the stats kernel's widest instantiation takes 256
@@ -143,3 +146,13 @@ def test_launch_geometry_follows_the_launch_size():
     assert small.lanes < wave.lanes and small.pairs == 1 < wave.pairs
     assert cuda_lib.launch_geometry("stats", 3200, 2, 132).memory
     assert not cuda_lib.launch_geometry("moves", 1664, 8, 132).memory
+    # pairs packed to whole groups of four warps where they fit a block:
+    # the full DP's polish shape (W 768) and the moves and stats kernels'
+    # 512- and 4096-pair shapes (W 256)
+    assert tuple(cuda_lib.launch_geometry("moves", 768, 512, 132)) == \
+        (8, 3, 4, False)
+    assert tuple(cuda_lib.launch_geometry("moves", 256, 512, 132)) == \
+        (8, 1, 4, False)
+    assert tuple(cuda_lib.launch_geometry("stats", 256, 4096, 132)) == \
+        (4, 2, 2, False)
+    assert cuda_lib.launch_geometry("moves", 1152, 100, 132).pairs == 1

@@ -1,13 +1,14 @@
-"""The CUDA sources of the stats and moves kernels, run on the CPU.
+"""The CUDA sources of the stats, moves and full-DP kernels, run on the CPU.
 
-``csrc/stats_kernel.cu`` and ``csrc/moves_kernel.cu`` are compiled with g++
-against ``tests/cuda_emu/emu.h``, a SIMT emulation (one OS thread per CUDA
-thread; warp shuffles, ballots and named barriers as thread barriers), and
-their rows and op streams must equal the plain PyTorch versions bit for bit
-under every launch geometry the kernels take.  This checks the kernels'
-logic (lane frames, halos, the window schedule's bits, trackers, the
-batched traceback); that they build for the card and how fast they run is
-chip_smoke.py's part.
+``csrc/stats_kernel.cu``, ``csrc/moves_kernel.cu`` and
+``csrc/full_dp_kernel.cu`` are compiled with g++ against
+``tests/cuda_emu/emu.h``, a SIMT emulation (one OS thread per CUDA thread;
+warp shuffles, ballots and named barriers as thread barriers), and their
+rows and op streams must equal the plain PyTorch versions bit for bit under
+every launch geometry the kernels take.  This checks the kernels' logic
+(lane frames, halos, the window schedule's bits, the fixed frame, trackers,
+the batched traceback); that they build for the card and how fast they run
+is chip_smoke.py's part.
 """
 
 import ctypes
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from ngspeciesid_tpu_torch.ops import align_full as F
 from ngspeciesid_tpu_torch.ops import align_moves as M
 from ngspeciesid_tpu_torch.ops import align_stats as A
 from ngspeciesid_tpu_torch.ops import cuda_lib
@@ -55,14 +57,15 @@ def libs(tmp_path_factory):
         pytest.skip("g++ not found: the emulated kernels need a C++ compiler")
     out = tmp_path_factory.mktemp("cuda_emu")
     shutil.copy(os.path.join(EMU, "emu.h"), out / "emu.h")
-    for name in ("wavefront.cuh", "stats_kernel.cu", "moves_kernel.cu"):
+    for name in ("wavefront.cuh", "moves_policy.cuh", "stats_kernel.cu",
+                 "moves_kernel.cu", "full_dp_kernel.cu"):
         with open(os.path.join(cuda_lib.CSRC, name)) as f:
             text = translate(f.read())
         (out / name.replace(".cu", ".cpp", 1 if name.endswith(".cu")
                             else 0)).write_text(text)
     (out / "globals.cpp").write_text(GLOBALS)
     found = {}
-    for kind in ("stats", "moves"):
+    for kind in ("stats", "moves", "full_dp"):
         so = out / f"lib{kind}.so"
         subprocess.run([gxx, "-std=c++17", "-O1", "-fPIC", "-shared",
                         "-pthread", "-w", f"-I{out}", "-o", str(so),
@@ -70,7 +73,8 @@ def libs(tmp_path_factory):
                         str(out / "globals.cpp")],
                        check=True, capture_output=True)
         lib = ctypes.CDLL(str(so))
-        for fn in (f"ngsid_{kind}_launch", f"ngsid_{kind}_state_ints"):
+        for fn in (f for f in cuda_lib.SIGNATURES
+                   if f.startswith(f"ngsid_{kind}_")):
             argtypes, restype = cuda_lib.SIGNATURES[fn]
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
@@ -179,3 +183,40 @@ def test_moves_kernel_source_equals_plain(libs, B, lo, hi, band, poa):
             assert err == 0
             assert torch.equal(best, want_best), geo
             assert torch.equal(ops, want_ops), geo
+
+
+@pytest.mark.parametrize("B,lo,hi,poa", [
+    (3, 20, 40, True),          # W 128
+    (2, 130, 180, False),       # W 256: one, two and four warps per pair
+    (1, 6, 200, False),         # 6 bp against 200 bp and back, W 256
+])
+def test_full_dp_kernel_source_equals_plain(libs, B, lo, hi, poa):
+    rng = np.random.default_rng(B * 1000 + lo + poa)
+    lib = libs["full_dp"]
+    scoring = (POA_MATCH, POA_MISMATCH, POA_EXT) if poa else (2, -2, 1)
+    if lo == 6:
+        a, b = (rng.integers(65, 69, size=k).astype(np.uint8) for k in (6, 200))
+        pairs = [(a, b), (b, a)]
+    else:
+        seqs = seqs_for(rng, B, lo, hi)
+        pairs = list(zip(seqs[0::2], seqs[1::2]))
+    opens = ([POA_OPEN] * len(pairs) if poa
+             else rng.integers(2, 6, size=len(pairs)).tolist())
+    pool, pm, W, d_max, _, _ = F.stage_pairs(pairs, opens, CPU)
+    want_best, want_ops = F.full_dp_rows_plain(pool, pm, W, d_max, *scoring)
+    for geo in every_geometry("moves", W):
+        n = pm.shape[0]
+        best = torch.full((n, 16), 12345, dtype=torch.int32)
+        ops = torch.zeros((n, d_max + 1), dtype=torch.uint8)
+        store = torch.empty((n, d_max + 1, W), dtype=torch.uint8)
+        scratch = (torch.empty(n * libs["moves"].ngsid_moves_state_ints(W),
+                               dtype=torch.int32) if geo.memory else None)
+        err = lib.ngsid_full_dp_launch(
+            pool.data_ptr(), pm.data_ptr(), store.data_ptr(),
+            ops.data_ptr(), best.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, W, d_max,
+            *scoring, geo.lanes, geo.warps, geo.pairs, int(geo.memory), 1,
+            None)
+        assert err == 0
+        assert torch.equal(best, want_best), geo
+        assert torch.equal(ops, want_ops), geo
