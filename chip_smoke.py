@@ -71,6 +71,17 @@ Phases, each fatal on failure:
    the above, one GRU forward per polished center, on cuda:0 in the cuda
    run and on the CPU in the native run; it prints the GRU's device time
    and one center's logits difference between the card and the CPU.
+4. GRU training (models/train.py) at full width (hidden 128, batch 16,
+   window 256): one step's examples from seed 0 made with the moves kernel
+   (band 150 pileups and band-0 draft labels) and with its plain version
+   on the CPU must be bit-equal; one train step from the in-repo weights on
+   cuda:0 against the CPU (loss, every gradient, and Adam alone on the
+   same gradients); three steps of train() with the counts at 0, which
+   must launch the moves kernel and write an npz that reloads with equal
+   logits; and the seconds per step of example making and of the train
+   step, beside the card's name and power limit.  The moves kernel's
+   launches and pairs in train() stand in the JSON line as
+   train_launches and train_pairs.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON line and {"ok": true, "device": {...}}.  Imports
@@ -149,6 +160,18 @@ FULL_OPS_PER_CELL = MOVES_OPS_PER_CELL
 #: center's features.  float32 on both sides reads about 2e-5 on an H100;
 #: TF32 would move it to about 1e-3.
 GRU_LOGITS_ATOL = 1e-4
+#: Phase 4's shapes: the reference trainer's defaults (models/train.py),
+#: three steps of train(), and the train step's timed repeats.
+TRAIN_BATCH = 16
+TRAIN_WINDOW = 256
+TRAIN_STEPS = 3
+TRAIN_TIMED = 10
+#: One train step, cuda:0 against the CPU: the tolerances that
+#: tests/test_torch_train.py holds the port's step to against JAX's.
+TRAIN_LOSS_ATOL = 1e-6
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_GRAD_ATOL = 1e-7
+TRAIN_ADAM_ATOL = 1e-6
 
 
 def log(msg):
@@ -990,6 +1013,129 @@ def phase_gru(A, M, work, pool):
     return launches
 
 
+def phase_train(M, smi):
+    """Phase 4: GRU training (models/train.py) on cuda:0 at full width
+    (hidden 128, batch 16, window 256).  (a) one step's examples from seed
+    0, made on the card and with the plain versions on the CPU, must be
+    bit-equal; (b) one step from the in-repo weights on that batch, on
+    cuda:0 and on the CPU: the loss and every gradient within
+    TRAIN_LOSS_ATOL and TRAIN_GRAD_RTOL/ATOL, and Adam alone (the CPU's
+    gradients into both optimizers) within TRAIN_ADAM_ATOL; (c) the main
+    path, three steps of train() with the counts at 0: the moves kernel
+    launched, the written npz reloads with logits equal to the in-memory
+    model's; (d) seconds per step of example making (host wall) and of the
+    train step (CUDA events), beside the card.  Returns the moves kernel's
+    launches and pairs in (c)."""
+    import numpy as np
+    import torch
+
+    from ngspeciesid_tpu_torch.models import polisher, train
+
+    dev = torch.device("cuda", 0)
+    cpu = torch.device("cpu")
+    weights = os.path.join(HERE, "ngspeciesid_tpu_torch", "data",
+                           "polisher_gru.npz")
+    batches, walls, counts = {}, {}, {}
+    for backend in ("cuda", "torch"):
+        os.environ["NGSID_STATS_BACKEND"] = backend
+        M.reset_counts()
+        t0 = time.perf_counter()
+        batches[backend] = train.make_batch(np.random.default_rng(0),
+                                            TRAIN_BATCH, TRAIN_WINDOW)
+        walls[backend] = time.perf_counter() - t0
+        counts[backend] = (M.LAUNCHES, M.PAIRS, M.PLAIN_PAIRS)
+    for name, got, want in zip(("feats", "labels", "mask"), batches["cuda"],
+                               batches["torch"]):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"training examples: {name} made on the "
+                                 f"card differs from the plain versions'")
+    launches, pairs, _ = counts["cuda"]
+    if launches < 2 * TRAIN_BATCH or counts["torch"][:2] != (0, 0):
+        raise AssertionError(f"training examples: moves launches/pairs "
+                             f"{counts}")
+    log(f"[train a] {TRAIN_BATCH} examples (window {TRAIN_WINDOW}) bit-equal"
+        f" between the moves kernel ({launches} launches, {pairs} pairs, "
+        f"{walls['cuda']} s) and its plain version on the CPU "
+        f"({counts['torch'][2]} pairs, {walls['torch']} s)")
+
+    def step_on(device, batch):
+        model = polisher.load_params(weights, device)
+        step = polisher.make_train_step(model)
+        loss = step(*(torch.from_numpy(a).to(device) for a in batch))
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return float(loss), grads, step
+
+    batch = batches["cuda"]
+    loss_g, grads_g, step_g = step_on(dev, batch)
+    loss_c, grads_c, _ = step_on(cpu, batch)
+    gaps = {n: float((grads_g[n] - grads_c[n]).abs().max()) for n in grads_c}
+    bad = [n for n in grads_c if not torch.allclose(
+        grads_g[n], grads_c[n], rtol=TRAIN_GRAD_RTOL, atol=TRAIN_GRAD_ATOL)]
+    if sorted(grads_g) != sorted(grads_c) or bad or \
+            abs(loss_g - loss_c) > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"train step on cuda:0 vs CPU: loss {loss_g} vs "
+                             f"{loss_c}, gradients out of tolerance {bad}, "
+                             f"max abs gaps {gaps}")
+    adam = {}
+    for device in (dev, cpu):
+        model = polisher.load_params(weights, device)
+        step = polisher.make_train_step(model)
+        for n, p in model.named_parameters():
+            if p.requires_grad:
+                p.grad = grads_c[n].to(device)
+        step.optimizer.step()
+        adam[device.type] = polisher.params_to_jax(model.state_dict())
+    adam_gap = max(float(np.abs(adam["cuda"][k] - adam["cpu"][k]).max())
+                   for k in adam["cpu"])
+    if adam_gap > TRAIN_ADAM_ATOL:
+        raise AssertionError(f"Adam on cuda:0 vs CPU, same gradients: max "
+                             f"abs weight gap {adam_gap}")
+    log(f"[train b] one step from the in-repo weights, cuda:0 vs CPU: loss "
+        f"{loss_g} vs {loss_c}; largest gradient gap {max(gaps.values())} "
+        f"(rtol {TRAIN_GRAD_RTOL}, atol {TRAIN_GRAD_ATOL}); Adam on the same"
+        f" gradients: largest weight gap {adam_gap} (atol {TRAIN_ADAM_ATOL})")
+
+    os.environ["NGSID_STATS_BACKEND"] = "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        out = os.path.join(tmp, "gru.npz")
+        M.reset_counts()
+        polisher.FORWARDS.clear()
+        t0 = time.perf_counter()
+        model = train.train(steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                            window=TRAIN_WINDOW, seed=0, out=out, log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        main_path = (M.LAUNCHES, M.PAIRS)
+        if M.LAUNCHES == 0 or M.PLAIN_PAIRS:
+            raise AssertionError(f"train(): moves kernel launches {M.LAUNCHES}"
+                                 f", plain pairs {M.PLAIN_PAIRS}")
+        if next(model.parameters()).device != dev:
+            raise AssertionError("train() did not train on cuda:0")
+        feats = np.random.default_rng(1).random(
+            (2, TRAIN_WINDOW, polisher.N_FEATURES), dtype=np.float32)
+        got = polisher.forward_logits(polisher.load_params(out, dev), feats)
+        want = polisher.forward_logits(model.eval(), feats)
+        if not np.array_equal(got, want) or not np.isfinite(got).all():
+            raise AssertionError("the written npz's logits differ from the "
+                                 "trained model's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del os.environ["NGSID_STATS_BACKEND"]
+    log(f"[train c] train(): {TRAIN_STEPS} steps in {wall} s, moves kernel "
+        f"{main_path[0]} launches / {main_path[1]} pairs; the npz reloads "
+        f"with equal logits")
+
+    feats, labels, mask = (torch.from_numpy(a).to(dev) for a in batch)
+    step_ms = time_cuda(lambda: step_g(feats, labels, mask), TRAIN_TIMED)
+    log(f"[train d] per step (batch {TRAIN_BATCH}, window {TRAIN_WINDOW}, "
+        f"hidden {polisher.HIDDEN}): example making {walls['cuda']} s host "
+        f"wall, train step {step_ms} ms (CUDA events, median of "
+        f"{TRAIN_TIMED}); card {smi}")
+    return main_path
+
+
 def simulate(out, n_reads, n_species):
     subprocess.run(
         [sys.executable, "-m", "ngspeciesid_tpu_torch.simulate", "--out", out,
@@ -1071,6 +1217,7 @@ def main(argv=None):
         phase_gru(A, M, os.path.join(work, "gru"), pool20k)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    train_launches, train_pairs = phase_train(M, smi.splitlines()[0])
 
     log(f"chip_smoke wall: {time.perf_counter() - t_start} s")
     log(smi.splitlines()[0])
@@ -1094,6 +1241,7 @@ def main(argv=None):
              source="ngspeciesid_tpu_torch/csrc/moves_kernel.cu",
              replaces="ngspeciesid_tpu/ops/align_moves_pallas.py:75",
              launches=launches["moves"], max_abs_err=moves_err,
+             train_launches=train_launches, train_pairs=train_pairs,
              library_ms=None, **timed("moves")),
         dict(name="full_dp_kernel", route="cuda",
              source="ngspeciesid_tpu_torch/csrc/full_dp_kernel.cu",

@@ -53,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="Polisher model: a medaka model NAME maps to the built-in "
              "quality-weighted pileup caller (accuracy-equivalent at "
              "amplicon depth; no neural net runs — diverges from the "
-             "reference, which passes the name to medaka); a PATH to "
-             "trained GRU params is not ported yet and exits 1")
+             "reference, which passes the name to medaka), a PATH loads "
+             "trained GRU params (models/train.py npz)")
     parser.add_argument("--medaka_fastq", action="store_true", help="Write fastq consensus output")
     parser.add_argument("--racon_iter", type=int, default=2, help="Polishing iterations")
     group2 = parser.add_mutually_exclusive_group()

@@ -703,10 +703,11 @@ def reads_to_clusters(
     aln_cache: Dict[int, Tuple[float, float]] = {}  # key = row * n_rows + rep_row
     wave_size = cfg.wave_size
     if wave_size <= 0:
-        # auto: the CUDA kernel takes large speculative waves (one block per
-        # pair); the in-process engines prefer smaller waves (less
-        # speculative DP on conflict replay).  4096 is provisional, carried
-        # over from the reference until it is measured on the card.
+        # auto: the CUDA kernel takes large speculative waves (a pair is
+        # 1-16 warps, and pairs share a block); the in-process engines
+        # prefer smaller waves (less speculative DP on conflict replay).
+        # 4096 is provisional, carried over from the reference until it is
+        # measured on the card.
         from ..ops.align import stats_backend_default
         wave_size = 4096 if stats_backend_default() == "cuda" else 256
     wave_size = max(1, wave_size)

@@ -7,7 +7,7 @@ setup(
     packages=find_packages(exclude=("tests", "tests.*")),
     package_data={"ngspeciesid_tpu": ["data/*.npz"],
                   "ngspeciesid_tpu_torch": ["data/*.npz", "native/*.cpp",
-                                            "csrc/*.cu"]},
+                                            "csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     entry_points={

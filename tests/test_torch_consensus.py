@@ -75,11 +75,14 @@ def _files(folder):
     (["--medaka"], "medaka_cl_id_*/consensus.fasta"),
     (["--racon", "--racon_iter", "2"], "racon_cl_id_*/mapping_it_1.paf"),
     (["--medaka", "--remove_universal_tails"], "medaka_cl_id_*/consensus.fasta"),
-], ids=["medaka", "racon", "tails"])
+    (["--medaka", "--primer_file", "{tails}"], "medaka_cl_id_*/consensus.fasta"),
+], ids=["medaka", "racon", "tails", "primer_file"])
 def test_stage4_outputs_byte_equal_to_reference(pool, tmp_path, monkeypatch,
                                                 extra, polished):
+    """``{tails}``: the pool's tails file, given as --primer_file."""
+    tails = os.path.join(os.path.dirname(pool), "tails.fa")
     args = ["--ont", "--fastq", pool, "--t", "1", "--consensus",
-            "--abundance_ratio", "0.05", *extra]
+            "--abundance_ratio", "0.05", *(a.format(tails=tails) for a in extra)]
     monkeypatch.delenv("NGSID_STATS_BACKEND", raising=False)
     assert ref_cli.main(args + ["--outfolder", str(tmp_path / "ref")]) == 0
 
@@ -99,7 +102,7 @@ def test_stage4_outputs_byte_equal_to_reference(pool, tmp_path, monkeypatch,
     assert len(list((tmp_path / "port").glob(polished))) == 3
     cons = [got[n] for n in got if n.startswith("consensus_reference_")]
     assert all(len(c) > 200 for c in cons)
-    if "--remove_universal_tails" in extra:
+    if "--remove_universal_tails" in extra or "--primer_file" in extra:
         assert not any(TAIL_F.encode() in c for c in cons)
 
 

@@ -156,3 +156,27 @@ def test_launch_geometry_follows_the_launch_size():
     assert tuple(cuda_lib.launch_geometry("stats", 256, 4096, 132)) == \
         (4, 2, 2, False)
     assert cuda_lib.launch_geometry("moves", 1152, 100, 132).pairs == 1
+
+
+def _package_data(package):
+    """The ``package_data`` patterns that setup.py gives ``package``."""
+    import ast
+
+    with open(os.path.join(os.path.dirname(CSRC), "..", "setup.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.keyword) and node.arg == "package_data":
+            return ast.literal_eval(node.value)[package]
+    raise AssertionError("setup.py has no package_data")
+
+
+def test_install_ships_every_kernel_source():
+    """A non-editable install must carry every file that cuda_lib.build()
+    hands to nvcc, the headers included."""
+    import fnmatch
+
+    patterns = _package_data("ngspeciesid_tpu_torch")
+    names = sorted(os.listdir(CSRC))
+    assert any(n.endswith(".cuh") for n in names)
+    for name in names:
+        assert any(fnmatch.fnmatch(f"csrc/{name}", p) for p in patterns), name

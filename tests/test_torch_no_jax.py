@@ -74,6 +74,44 @@ def test_cpu_cli_run_imports_no_jax(tiny_pool, tmp_path, gru):
     assert list(out.glob("medaka_cl_id_*/consensus.fasta"))
 
 
+_NO_JAX = (
+    "bad = sorted(m for m in sys.modules if m == 'jax' or "
+    "m.startswith(('jax.', 'jaxlib', 'flax', 'optax')))\n"
+    "assert not bad, bad\n"
+    "ref = sorted(m for m in sys.modules if m == 'ngspeciesid_tpu' or "
+    "m.startswith('ngspeciesid_tpu.'))\n"
+    "assert not ref, ref\n"
+    "print('NO_JAX_OK')\n")
+
+
+@pytest.mark.parametrize("tool", ["train", "quality"])
+def test_offline_tool_run_imports_no_jax(tmp_path, tool):
+    """A 1-step training CLI run (batch 1, window 32), and a quality.py run
+    on a clusters table and a truth TSV."""
+    if tool == "train":
+        out = tmp_path / "gru.npz"
+        argv = ["train", "--out", str(out), "--steps", "1", "--batch", "1",
+                "--window", "32"]
+        module = "ngspeciesid_tpu_torch.models.train"
+    else:
+        out = tmp_path / "q.csv"
+        clusters = tmp_path / "final_clusters.tsv"
+        clusters.write_text("0\ta\n0\tb\n1\tc\n")
+        truth = tmp_path / "truth.tsv"
+        truth.write_text("a\tx\nb\tx\nc\ty\n")
+        argv = ["quality", "--clusters", str(clusters), "--classes",
+                str(truth), "--outfile", str(out)]
+        module = "ngspeciesid_tpu_torch.quality"
+    code = ("import sys\n"
+            f"sys.argv = {argv!r}\n"
+            f"import {module} as tool\n"
+            "tool.main()\n" + _NO_JAX)
+    proc = _run(["-c", code], "torch")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout
+    assert out.stat().st_size > 0
+
+
 def test_cuda_backend_without_gpu_fails_loudly(tiny_pool, tmp_path):
     out = tmp_path / "out"
     proc = _run(["-m", "ngspeciesid_tpu_torch", "--ont", "--fastq", tiny_pool,
