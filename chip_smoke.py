@@ -82,6 +82,32 @@ Phases, each fatal on failure:
    step, beside the card's name and power limit.  The moves kernel's
    launches and pairs in train() stand in the JSON line as
    train_launches and train_pairs.
+5. Distributed clustering (parallel/dist.py, NGSID_DISTRIBUTED=1):
+   a. the 20k pool with --ont --abundance_ratio 0.005 (stages 1-3) through
+      the CLI as 2 rank processes on the card, started as torchrun starts
+      them (parallel/dist.spawn_local; this script re-run with
+      --dist-rank), a gloo group between them and one outfolder each; and
+      in this process at --t 2 (the merge tree) on cuda and on native.
+      sorted.fastq, final_clusters.tsv and final_cluster_origins.tsv of
+      both ranks must be byte-equal to each other and to both --t 2 runs;
+      both ranks must have launched the stats kernel (counts at 0 before
+      each rank's CLI run).  Prints each rank's launches, pairs, cluster
+      wall and all-gathers (count and payload bytes), beside the --t 2
+      runs' cluster walls.  Each rank's launches stand in the JSON line as
+      the stats kernel's dist_launches.
+   b. graft_entry.dryrun_multichip(8): one data 2 x model 4 train step of
+      the GRU at hidden 128 over 8 gloo rank threads on the CPU, held
+      against the single-device step (loss, gradients, Adam on the same
+      gradients); the distributed clustering over 8 rank threads on the
+      default backend (cuda: every rank launches the stats kernel, counted
+      from 0, which stands in the JSON line as dryrun_launches) and over 2
+      processes, each equal to the merge tree.  Prints the loss, the
+      largest gradient gap and the walls.
+
+Phase 5a spawns this script with ``--dist-rank OUT_JSON -- CLI ARGS``: it
+then runs the CLI once as a rank of the launcher's world, counts from 0,
+and writes its kernel counts, stage walls and all-gather traffic to
+OUT_JSON.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON line and {"ok": true, "device": {...}}.  Imports
@@ -172,6 +198,11 @@ TRAIN_LOSS_ATOL = 1e-6
 TRAIN_GRAD_RTOL = 1e-4
 TRAIN_GRAD_ATOL = 1e-7
 TRAIN_ADAM_ATOL = 1e-6
+#: Phase 5a: the CLI's arguments (stages 1-3 of the 20k pool), the rank
+#: processes and the seconds they may take together.
+DIST_ARGS = ("--ont", "--abundance_ratio", "0.005")
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 600
 
 
 def log(msg):
@@ -1136,6 +1167,116 @@ def phase_train(M, smi):
     return main_path
 
 
+def dist_rank(out_json, cli_args):
+    """Phase 5a's rank process: the CLI once with the stats counts at 0;
+    its counts, walls and all-gather traffic to ``out_json``."""
+    import torch
+
+    from ngspeciesid_tpu_torch import cli
+    from ngspeciesid_tpu_torch.ops import align_stats as A
+    from ngspeciesid_tpu_torch.parallel import dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    walls = {}
+    A.reset_counts()
+    dist.reset_counts()
+    rc = cli.main(cli_args, stage_walls=walls)
+    torch.cuda.synchronize()
+    with open(out_json, "w") as f:
+        json.dump(dict(rc=rc, launches=A.LAUNCHES, pairs=A.PAIRS,
+                       plain_pairs=A.PLAIN_PAIRS, sizes=histogram(A.SIZES),
+                       walls=walls, traffic=dict(dist.TRAFFIC)), f)
+    return rc
+
+
+def phase_distributed(A, work, pool, smi):
+    """Phase 5a: the 20k pool's stages 1-3 as DIST_RANKS rank processes
+    with NGSID_DISTRIBUTED=1 on the card, against --t 2 in this process on
+    cuda and on native: every stage-3 file byte-equal, the stats kernel
+    launched by every rank.  Returns each rank's stats launches."""
+    from ngspeciesid_tpu_torch import cli
+    from ngspeciesid_tpu_torch.parallel.dist import spawn_local
+
+    files, cluster_walls = {}, {}
+    for backend in ("cuda", "native"):
+        out = os.path.join(work, f"t2_{backend}")
+        os.environ["NGSID_STATS_BACKEND"] = backend
+        walls = {}
+        A.reset_counts()
+        try:
+            rc = cli.main([*DIST_ARGS, "--t", "2", "--fastq", pool,
+                           "--outfolder", out], stage_walls=walls)
+        finally:
+            del os.environ["NGSID_STATS_BACKEND"]
+        if rc != 0:
+            raise AssertionError(f"--t 2 on {backend} exited {rc}")
+        cluster_walls[f"--t 2 {backend}"] = walls["cluster"]
+        log(f"[dist a] --t 2 on {backend}: stage walls {json.dumps(walls)}, "
+            f"stats launches/pairs {A.LAUNCHES}/{A.PAIRS}")
+        files[f"--t 2 {backend}"] = out
+    env = dict(os.environ, NGSID_DISTRIBUTED="1")
+    outs = [os.path.join(work, f"rank{r}") for r in range(DIST_RANKS)]
+    stats = [os.path.join(work, f"rank{r}.json") for r in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    spawn_local([[sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                  "--dist-rank", st, "--", *DIST_ARGS, "--fastq", pool,
+                  "--outfolder", out] for st, out in zip(stats, outs)],
+                timeout_s=DIST_TIMEOUT_S, env=env, cwd=work)
+    wall = time.perf_counter() - t0
+    launches = []
+    for r, (st, out) in enumerate(zip(stats, outs)):
+        with open(st) as f:
+            rank = json.load(f)
+        if rank["rc"] != 0 or rank["launches"] == 0 or rank["plain_pairs"]:
+            raise AssertionError(f"rank {r}: {json.dumps(rank)}")
+        launches.append(rank["launches"])
+        cluster_walls[f"rank {r}"] = rank["walls"]["cluster"]
+        files[f"rank {r}"] = out
+        log(f"[dist a] rank {r} of {DIST_RANKS}: stats kernel "
+            f"{rank['launches']} launches / {rank['pairs']} pairs (pairs per "
+            f"launch {json.dumps(rank['sizes'])}), stage walls "
+            f"{json.dumps(rank['walls'])}, all-gathers "
+            f"{json.dumps(rank['traffic'])}")
+    for name in STAGE3_OUTPUTS:
+        blobs = {}
+        for who, folder in files.items():
+            with open(os.path.join(folder, name), "rb") as f:
+                blobs[who] = f.read()
+        if not blobs["--t 2 native"] or len(set(blobs.values())) != 1:
+            raise AssertionError(
+                f"{name} differs: " + ", ".join(
+                    f"{who} {len(b)} bytes" for who, b in blobs.items()))
+    log(f"[dist a] {DIST_RANKS} rank processes, NGSID_DISTRIBUTED=1: "
+        f"{' '.join(STAGE3_OUTPUTS)} byte-equal across both ranks and --t 2 "
+        f"on cuda and native; {DIST_RANKS}-rank wall {wall} s (process start "
+        f"to exit); cluster walls {json.dumps(cluster_walls)}; card {smi}")
+    return launches
+
+
+def phase_dryrun(A, smi):
+    """Phase 5b: graft_entry.dryrun_multichip(8) with the clustering on the
+    default backend (cuda), the stats counts at 0 before it; returns the
+    stats kernel's launches in its distributed clustering."""
+    from ngspeciesid_tpu_torch import graft_entry
+
+    A.reset_counts()
+    t0 = time.perf_counter()
+    report = graft_entry.dryrun_multichip(8)
+    wall = time.perf_counter() - t0
+    train, clustering = report["train"], report["clustering"]
+    train.pop("grads")
+    if clustering["stats_launches"] == 0 or clustering["stats_plain_pairs"]:
+        raise AssertionError(f"dry run clustering: {json.dumps(clustering)}")
+    log(f"[dryrun b] dryrun_multichip(8): train step {json.dumps(train)}; "
+        f"clustering over 8 rank threads {json.dumps(clustering)}; over "
+        f"processes {json.dumps(report['processes'])}; wall {wall} s; "
+        f"card {smi}")
+    return clustering["stats_launches"]
+
+
 def simulate(out, n_reads, n_species):
     subprocess.run(
         [sys.executable, "-m", "ngspeciesid_tpu_torch.simulate", "--out", out,
@@ -1154,13 +1295,21 @@ def main(argv=None):
                          "versions) and the full DP's entry point at the "
                          "polish shape, and stop: run from another "
                          "checkout's root to time its kernels")
+    ap.add_argument("--dist-rank", metavar="OUT_JSON",
+                    help="run the CLI (the arguments after --) once as a "
+                         "rank of phase 5a and write its counts to OUT_JSON")
+    ap.add_argument("cli_args", nargs="*", help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
+    if opts.cli_args and not opts.dist_rank:
+        ap.error(f"unexpected arguments {opts.cli_args}")
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "ngspeciesid_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
               "(ngspeciesid_tpu_torch/ not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if opts.dist_rank:
+        return dist_rank(opts.dist_rank, opts.cli_args)
     import torch
 
     if not torch.cuda.is_available():
@@ -1215,9 +1364,12 @@ def main(argv=None):
             ["--ont", "--consensus", "--racon", "--racon_iter", "2",
              "--abundance_ratio", "0.005"])
         phase_gru(A, M, os.path.join(work, "gru"), pool20k)
+        train_launches, train_pairs = phase_train(M, smi.splitlines()[0])
+        dist_launches = phase_distributed(A, os.path.join(work, "dist"),
+                                          pool20k, smi.splitlines()[0])
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    train_launches, train_pairs = phase_train(M, smi.splitlines()[0])
+    dryrun_launches = phase_dryrun(A, smi.splitlines()[0])
 
     log(f"chip_smoke wall: {time.perf_counter() - t_start} s")
     log(smi.splitlines()[0])
@@ -1236,6 +1388,7 @@ def main(argv=None):
              source="ngspeciesid_tpu_torch/csrc/stats_kernel.cu",
              replaces="ngspeciesid_tpu/ops/align_stats_pallas.py:223",
              launches=launches["stats"], max_abs_err=stats_err,
+             dist_launches=dist_launches, dryrun_launches=dryrun_launches,
              library_ms=None, **timed("stats")),
         dict(name="moves_kernel", route="cuda",
              source="ngspeciesid_tpu_torch/csrc/moves_kernel.cu",

@@ -4,8 +4,9 @@ Runs the whole pipeline (score and sort the reads; greedy minimizer
 clustering, single pass or merge tree; with --consensus, the draft POA,
 primer / universal-tail trim, reverse-complement merge and pileup polish,
 and with --medaka_model <npz> the GRU polisher) with the same flags and the
-same output files as the JAX package, which stays the reference; it also
-trains the GRU polisher and carries the offline evaluation tools.  Every
+same output files as the JAX package, which stays the reference; with
+NGSID_DISTRIBUTED=1 it spreads the clustering over a launcher's ranks; it
+also trains the GRU polisher and carries the offline evaluation tools.  Every
 alignment runs in a hand-written CUDA kernel on an NVIDIA Hopper card: the
 clustering statistics and the RC-merge identity in
 ``csrc/stats_kernel.cu``, the draft, polish and training-label alignments
@@ -35,11 +36,15 @@ ported modules:
   ops/poa.py           draft POA and polish pileup
   cluster/engine.py    wave-batched greedy clustering engine
   parallel/merge.py    merge-tree schedule (--t N)
+  parallel/dist.py     the merge tree over ranks (NGSID_DISTRIBUTED=1):
+                       gloo all-gathers, rank threads, process launch
   consensus/stage.py   stage 4: draft, trim, RC merge, polish drivers
   models/polisher.py   the GRU polisher: JAX weights carry-over both ways,
                        serving, loss and Adam train step
   models/train.py      GRU training on synthetic amplicons
   eval_polisher.py     the GRU against the deterministic caller, on a grid
+  graft_entry.py       driver entry points: the GRU forward, and a data-
+                       and tensor-parallel dry run with the clustering
   pipeline.py, cli.py  the stages and the command line
   stage_profile.py     stage walls, host profile and device time on a GPU
 """

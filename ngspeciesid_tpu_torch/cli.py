@@ -1,8 +1,9 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 The same flags, defaults, presets, groups, subcommand and validation as
-ngspeciesid_tpu/cli.py (reference NGSpeciesID:187-287).  What the port
-cannot run yet (:func:`pipeline.unsupported`) exits 1 before stage 1.
+ngspeciesid_tpu/cli.py (reference NGSpeciesID:187-287).  Under a launcher
+such as ``torchrun`` with NGSID_DISTRIBUTED=1, each rank runs this CLI and
+the clustering stage's shards are spread over the ranks (pipeline.py).
 """
 
 from __future__ import annotations
@@ -186,10 +187,6 @@ def main(argv=None, stage_walls=None) -> int:
     cfg = args_to_config(args)
     if 100 < cfg.w or cfg.w < cfg.k:
         logging.error("Please specify a window of size larger or equal to k, and smaller than 100.")
-        return 1
-    reason = pipeline.unsupported(cfg)
-    if reason:
-        logging.error(reason)
         return 1
     pipeline.run(cfg, stage_walls)
     return 0

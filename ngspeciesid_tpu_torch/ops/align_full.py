@@ -31,6 +31,7 @@ origin) for CPU tensors.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +47,8 @@ PAIRS = 0
 #: Launches and pairs of the plain PyTorch version (CPU tensors).
 PLAIN_LAUNCHES = 0
 PLAIN_PAIRS = 0
+#: Guards the counts: ranks that run as threads launch at once.
+_COUNT_LOCK = threading.Lock()
 
 #: Lanes cover i = 0..n, rounded up to this many.
 LANE_TILE = 128
@@ -57,7 +60,8 @@ MAX_STORE_BYTES = 1 << 30
 
 def reset_counts() -> None:
     global LAUNCHES, PAIRS, PLAIN_LAUNCHES, PLAIN_PAIRS
-    LAUNCHES = PAIRS = PLAIN_LAUNCHES = PLAIN_PAIRS = 0
+    with _COUNT_LOCK:
+        LAUNCHES = PAIRS = PLAIN_LAUNCHES = PLAIN_PAIRS = 0
 
 
 def lanes_for(n: int) -> int:
@@ -127,8 +131,9 @@ def _full_dp_rows_cuda(pool, pm, W, d_max, match, mismatch, gap_ext,
             B, W, d_max, match, mismatch, gap_ext, geo.lanes, geo.warps,
             geo.pairs, int(geo.memory), int(traceback), stream)
     cuda_lib.check(err, "full DP kernel launch")
-    LAUNCHES += 1
-    PAIRS += B
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        PAIRS += B
     return best, ops
 
 
@@ -141,8 +146,9 @@ def full_dp_rows_plain(pool, pm, W, d_max, match=2, mismatch=-2, gap_ext=1
     base = torch.zeros(d_max + 1, dtype=torch.int32, device=pool.device)
     best, ops, _ = moves_plain(pool, pm, base, W, d_max, 0, match, mismatch,
                                gap_ext)
-    PLAIN_LAUNCHES += 1
-    PLAIN_PAIRS += pm.shape[0]
+    with _COUNT_LOCK:
+        PLAIN_LAUNCHES += 1
+        PLAIN_PAIRS += pm.shape[0]
     return best, ops
 
 
@@ -157,7 +163,7 @@ def stage_pairs(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     table; W; d_max = n + m, the longest s1 and s2), then the host-side
     lengths."""
     pool = SeqPool(device)
-    pool.ensure([s for pair in pairs for s in pair])
+    buf = pool.ensure([s for pair in pairs for s in pair])
     B = len(pairs)
     len1 = np.fromiter((a.size for a, _ in pairs), np.int64, count=B)
     len2 = np.fromiter((b.size for _, b in pairs), np.int64, count=B)
@@ -165,12 +171,10 @@ def stage_pairs(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     pm[:, 0] = len1
     pm[:, 1] = len2
     pm[:, 2] = gap_opens
-    pm[:, 5] = np.fromiter((pool.offset(a) for a, _ in pairs), np.int64,
-                           count=B)
-    pm[:, 6] = np.fromiter((pool.offset(b) for _, b in pairs), np.int64,
-                           count=B)
+    pm[:, 5] = pool.offsets([a for a, _ in pairs])
+    pm[:, 6] = pool.offsets([b for _, b in pairs])
     n, m = int(len1.max()), int(len2.max())
-    return (pool.buf, torch.from_numpy(pm).to(device), lanes_for(n), n + m,
+    return (buf, torch.from_numpy(pm).to(device), lanes_for(n), n + m,
             len1, len2)
 
 

@@ -35,6 +35,7 @@ runs banded and nothing falls back to the full host DP.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,6 +60,8 @@ PAIRS = 0
 #: Launches and pairs of the plain PyTorch version (CPU tensors).
 PLAIN_LAUNCHES = 0
 PLAIN_PAIRS = 0
+#: Guards the counts: ranks that run as threads launch at once.
+_COUNT_LOCK = threading.Lock()
 #: Pairs of each CUDA launch, in launch order.
 SIZES: List[int] = []
 
@@ -69,8 +72,9 @@ MAX_B = 512
 
 def reset_counts() -> None:
     global LAUNCHES, PAIRS, PLAIN_LAUNCHES, PLAIN_PAIRS
-    LAUNCHES = PAIRS = PLAIN_LAUNCHES = PLAIN_PAIRS = 0
-    SIZES.clear()
+    with _COUNT_LOCK:
+        LAUNCHES = PAIRS = PLAIN_LAUNCHES = PLAIN_PAIRS = 0
+        SIZES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -135,9 +139,10 @@ def _moves_rows_cuda(pool, pm, base, W, d_max, band, match, mismatch,
             geo.lanes, geo.warps, geo.pairs, int(geo.memory), int(traceback),
             stream)
     cuda_lib.check(err, "moves kernel launch")
-    LAUNCHES += 1
-    PAIRS += B
-    SIZES.append(B)
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        PAIRS += B
+        SIZES.append(B)
     return best, ops
 
 
@@ -148,8 +153,9 @@ def moves_rows_plain(pool, pm, base, W, d_max, band, match=2, mismatch=-2,
     global PLAIN_LAUNCHES, PLAIN_PAIRS
     best, ops, _ = moves_plain(pool, pm, base, W, d_max, band, match,
                                mismatch, gap_ext)
-    PLAIN_LAUNCHES += 1
-    PLAIN_PAIRS += pm.shape[0]
+    with _COUNT_LOCK:
+        PLAIN_LAUNCHES += 1
+        PLAIN_PAIRS += pm.shape[0]
     return best, ops
 
 
@@ -348,7 +354,8 @@ def sg_moves_pool_torch(
     if device is None:
         device = stats_device(stats_backend_default())
     pool = SeqPool(torch.device(device))
-    pool.ensure([seqs[r] for r in dict.fromkeys(list(rows1) + list(rows2))])
+    buf = pool.ensure([seqs[r] for r in
+                       dict.fromkeys(list(rows1) + list(rows2))])
     chunks = _plan(seqs, rows1, rows2)
     launched = []
     for sl in chunks:
@@ -356,7 +363,7 @@ def sg_moves_pool_torch(
         pm, base, W, d_max, len1, len2 = stage_chunk(
             pool, seqs, [rows1[i] for i in sl], [rows2[i] for i in sl],
             [gap_opens[i] for i in sl], [0] * B, [0] * B, band)
-        best, ops = moves_rows(pool.buf, pm, base, W, d_max, band, match,
+        best, ops = moves_rows(buf, pm, base, W, d_max, band, match,
                                mismatch, gap_ext)
         launched.append((best, ops, len1, len2))
     out: List[Optional[np.ndarray]] = [None] * n_pairs

@@ -29,6 +29,7 @@ the kernel or raises.  Sequences live in a per-device pool
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,12 +48,20 @@ PLAIN_LAUNCHES = 0
 PLAIN_PAIRS = 0
 #: Pairs of each CUDA launch, in launch order.
 SIZES: List[int] = []
+#: Guards the counts: ranks that run as threads launch at once.
+_COUNT_LOCK = threading.Lock()
+#: One plain DP at a time in a process: it is a Python step per diagonal of
+#: small tensor ops, each of which releases the interpreter lock, so two
+#: threads running it at once hand that lock back and forth at every op
+#: and take several times longer together than one after the other.
+_PLAIN_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
     global LAUNCHES, PAIRS, PLAIN_LAUNCHES, PLAIN_PAIRS
-    LAUNCHES = PAIRS = PLAIN_LAUNCHES = PLAIN_PAIRS = 0
-    SIZES.clear()
+    with _COUNT_LOCK:
+        LAUNCHES = PAIRS = PLAIN_LAUNCHES = PLAIN_PAIRS = 0
+        SIZES.clear()
 
 
 class SeqPool:
@@ -60,7 +69,14 @@ class SeqPool:
     offset of each row, keyed on ``id(row)``.  Each distinct row crosses to
     the device once; the pool keeps a reference to every row it holds, so
     the id stays valid.  Appends never move a row; the tensor grows by copy
-    into one twice as large."""
+    into one twice as large.
+
+    Threads may share a pool (ranks that run as threads share the process's
+    pools): :meth:`ensure` and :meth:`offsets` hold the pool's lock, and
+    :meth:`ensure` returns the tensor that holds the rows.  A launch reads
+    that tensor, never ``buf``, which a concurrent grow replaces; the old
+    tensor keeps every row it held and stays alive while a launch holds
+    it."""
 
     CAP_MIN = 1 << 22
 
@@ -69,45 +85,60 @@ class SeqPool:
         self._off: Dict[int, int] = {}
         self._keep: Dict[int, np.ndarray] = {}
         self._used = 0
+        self._lock = threading.Lock()
         self.buf = torch.empty(self.CAP_MIN, dtype=torch.uint8, device=device)
 
-    def ensure(self, rows: Sequence[np.ndarray]) -> None:
-        """Copy the rows not yet resident to the device, in one transfer."""
-        missing = {id(r): r for r in rows if id(r) not in self._off}
-        if not missing:
-            return
-        size = sum(r.size for r in missing.values())
-        need = self._used + size
-        if need > self.buf.numel():
-            cap = self.buf.numel()
-            while cap < need:
-                cap *= 2
-            grown = torch.empty(cap, dtype=torch.uint8, device=self.device)
-            grown[: self._used] = self.buf[: self._used]
-            self.buf = grown
-        chunk = np.concatenate(list(missing.values()))
-        self.buf[self._used: need] = torch.from_numpy(chunk).to(self.device)
-        off = self._used
-        for key, r in missing.items():
-            self._off[key] = off
-            self._keep[key] = r
-            off += r.size
-        self._used = need
+    def ensure(self, rows: Sequence[np.ndarray]) -> torch.Tensor:
+        """Copy the rows not yet resident to the device, in one transfer;
+        return the tensor that holds every row of ``rows``."""
+        with self._lock:
+            missing = {id(r): r for r in rows if id(r) not in self._off}
+            if not missing:
+                return self.buf
+            size = sum(r.size for r in missing.values())
+            need = self._used + size
+            buf = self.buf
+            if need > buf.numel():
+                cap = buf.numel()
+                while cap < need:
+                    cap *= 2
+                grown = torch.empty(cap, dtype=torch.uint8, device=self.device)
+                grown[: self._used] = buf[: self._used]
+                buf = grown
+            chunk = np.concatenate(list(missing.values()))
+            buf[self._used: need] = torch.from_numpy(chunk).to(self.device)
+            off = self._used
+            for key, r in missing.items():
+                self._off[key] = off
+                self._keep[key] = r
+                off += r.size
+            self._used = need
+            self.buf = buf
+            return buf
+
+    def offsets(self, rows: Sequence[np.ndarray]) -> np.ndarray:
+        """The byte offsets of resident ``rows``, int64."""
+        with self._lock:
+            return np.fromiter((self._off[id(r)] for r in rows), np.int64,
+                               count=len(rows))
 
     def offset(self, row: np.ndarray) -> int:
-        return self._off[id(row)]
+        with self._lock:
+            return self._off[id(row)]
 
 
 _POOLS: Dict[torch.device, SeqPool] = {}
+_POOLS_LOCK = threading.Lock()
 
 
 def device_pool(device: torch.device) -> SeqPool:
     """The process-wide pool of ``device`` (rows stay resident across calls,
     waves and sub-rounds of a clustering run)."""
-    pool = _POOLS.get(device)
-    if pool is None:
-        pool = _POOLS[device] = SeqPool(device)
-    return pool
+    with _POOLS_LOCK:
+        pool = _POOLS.get(device)
+        if pool is None:
+            pool = _POOLS[device] = SeqPool(device)
+        return pool
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +187,9 @@ def stats_rows(pool: torch.Tensor, pm: torch.Tensor, base: torch.Tensor,
         return _stats_rows_cuda(pool, pm, base, W, d_max, band, match,
                                 mismatch, gap_ext)
     if pool.device.type == "cpu":
-        return stats_rows_plain(pool, pm, base, W, d_max, band, match,
-                                mismatch, gap_ext)
+        with _PLAIN_LOCK:
+            return stats_rows_plain(pool, pm, base, W, d_max, band, match,
+                                    mismatch, gap_ext)
     raise ValueError(f"no stats DP for device {pool.device}")
 
 
@@ -190,9 +222,10 @@ def _stats_rows_cuda(pool, pm, base, W, d_max, band, match, mismatch,
             B, W, d_max, band, match, mismatch, gap_ext, geo.lanes,
             geo.warps, geo.pairs, int(geo.memory), stream)
     cuda_lib.check(err, "stats kernel launch")
-    LAUNCHES += 1
-    PAIRS += B
-    SIZES.append(B)
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        PAIRS += B
+        SIZES.append(B)
     return out
 
 
@@ -377,8 +410,9 @@ def stats_rows_plain(pool, pm, base, W, d_max, band, match=2, mismatch=-2,
                      pick[:, None].to(i32)), dim=1)
     init = torch.tensor([NEG, -1, 0, 0, 0, 0, 0, 0], dtype=i32, device=dev)
     trk = torch.where(ok.any(0)[:, None], trk, init)
-    PLAIN_LAUNCHES += 1
-    PLAIN_PAIRS += B
+    with _COUNT_LOCK:
+        PLAIN_LAUNCHES += 1
+        PLAIN_PAIRS += B
     return torch.cat((trk[:B], trk[B:]), dim=1).contiguous()
 
 
@@ -396,6 +430,7 @@ def _popcount(x: np.ndarray) -> np.ndarray:
 
 
 _SCHED_CACHE: dict = {}
+_SCHED_LOCK = threading.Lock()
 
 
 def _window_schedule(len1: np.ndarray, len2: np.ndarray,
@@ -410,13 +445,15 @@ def _window_schedule(len1: np.ndarray, len2: np.ndarray,
     it preserves coverage while collapsing the per-launch recompute."""
     key = (int(len1.min()), int(len1.max()), int(len2.min()),
            int(len2.max()), n, m, band)
-    hit = _SCHED_CACHE.get(key)
+    with _SCHED_LOCK:
+        hit = _SCHED_CACHE.get(key)
     if hit is not None:
         return hit
     out = _window_schedule_raw(len1, len2, n, m, band, key)
-    if len(_SCHED_CACHE) > 4096:
-        _SCHED_CACHE.clear()
-    _SCHED_CACHE[key] = out
+    with _SCHED_LOCK:
+        if len(_SCHED_CACHE) > 4096:
+            _SCHED_CACHE.clear()
+        _SCHED_CACHE[key] = out
     return out
 
 
@@ -522,22 +559,21 @@ def stage_chunk(pool: SeqPool, seqs, r1, r2, gap_opens, ks, match_ids,
     pm[:, 2] = gap_opens
     pm[:, 3] = ks
     pm[:, 4] = match_ids
-    pm[:, 5] = np.fromiter((pool.offset(seqs[r]) for r in r1), np.int64,
-                           count=B)
-    pm[:, 6] = np.fromiter((pool.offset(seqs[r]) for r in r2), np.int64,
-                           count=B)
+    pm[:, 5] = pool.offsets([seqs[r] for r in r1])
+    pm[:, 6] = pool.offsets([seqs[r] for r in r2])
     base, W = _window_schedule(len1, len2, n, m, band)
     dev = pool.device
     return (torch.from_numpy(pm).to(dev), torch.from_numpy(base[0]).to(dev),
             W, int((len1 + len2).max()), len1, len2)
 
 
-def _launch_chunk(pool: SeqPool, seqs, r1, r2, gap_opens, ks, match_ids,
-                  match, mismatch, gap_ext, band):
-    """Run one chunk's DP on the pool's device (asynchronously on CUDA)."""
+def _launch_chunk(pool: SeqPool, buf: torch.Tensor, seqs, r1, r2, gap_opens,
+                  ks, match_ids, match, mismatch, gap_ext, band):
+    """Run one chunk's DP on the pool's device (asynchronously on CUDA);
+    ``buf`` is what ``pool.ensure`` returned for the chunk's rows."""
     pm, base, W, d_max, len1, len2 = stage_chunk(
         pool, seqs, r1, r2, gap_opens, ks, match_ids, band)
-    best = stats_rows(pool.buf, pm, base, W, d_max, band, match, mismatch,
+    best = stats_rows(buf, pm, base, W, d_max, band, match, mismatch,
                       gap_ext)
     return best, len1, len2, np.asarray(ks, np.int64), \
         np.asarray(match_ids, np.int64), band
@@ -616,12 +652,13 @@ def sg_stats_pool_torch(
     if device is None:
         device = stats_device(stats_backend_default())
     pool = device_pool(torch.device(device))
-    pool.ensure([seqs[r] for r in dict.fromkeys(list(rows1) + list(rows2))])
+    buf = pool.ensure([seqs[r] for r in
+                       dict.fromkeys(list(rows1) + list(rows2))])
     chunks = _plan_chunks(seqs, rows1, rows2)
     futures = []
     for sl in chunks:
         futures.append(_launch_chunk(
-            pool, seqs, [rows1[i] for i in sl], [rows2[i] for i in sl],
+            pool, buf, seqs, [rows1[i] for i in sl], [rows2[i] for i in sl],
             [gap_opens[i] for i in sl], [ks[i] for i in sl],
             [match_ids[i] for i in sl], match, mismatch, gap_ext, band))
     host = torch.cat([f[0] for f in futures]).cpu().numpy()

@@ -18,6 +18,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import List, NamedTuple, Optional
 
@@ -28,6 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
+#: One build and load at a time: rank threads may make their first launch
+#: together, and a build's temporary files are named by process.
+_LOAD_LOCK = threading.Lock()
 #: Wall seconds of the last nvcc run in this process (None: library reused).
 BUILD_SECONDS: Optional[float] = None
 #: nvcc's output of that build (ptxas register and shared-memory report).
@@ -116,14 +120,15 @@ SIGNATURES = {
 def load() -> ctypes.CDLL:
     """The kernels' library, built if needed, with its C signatures set."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
-    return _lib
+    with _LOAD_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
 
 
 # ---------------------------------------------------------------------------

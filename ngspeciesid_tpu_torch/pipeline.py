@@ -5,9 +5,10 @@ the empirical minimizer probability table; (3) wave-batched greedy
 clustering (single pass, or the merge-tree sharded schedule when
 nr_cores > 1); (4) cluster table output; (5) with --consensus, draft
 consensus, trim, RC dedup and polish (the GRU polisher with
---medaka_model <params npz>).  The multi-host schedule
-(NGSID_DISTRIBUTED=1) is not ported yet and exits with an error that names
-its ROADMAP item.
+--medaka_model <params npz>).  With NGSID_DISTRIBUTED=1 stage 3 runs the
+merge tree's shards on the ranks of a launcher such as ``torchrun``
+(parallel/dist.py); its result is replicated, and every rank writes its
+own outputs.
 """
 
 from __future__ import annotations
@@ -33,14 +34,6 @@ from .utils.ptable import load_p_table, p_table_as_matrix
 logger = logging.getLogger(__name__)
 
 ReadArray = List[Tuple[int, int, str, str, str, float]]
-
-
-def unsupported(cfg: Config) -> Optional[str]:
-    """Why this port cannot run ``cfg`` yet (None when it can)."""
-    if os.environ.get("NGSID_DISTRIBUTED") == "1":
-        return ("NGSID_DISTRIBUTED=1 (multi-process clustering) is not ported "
-                "to ngspeciesid_tpu_torch yet; see ROADMAP.md, parallel/dist.py")
-    return None
 
 
 def load_read_array(sorted_path: str, cfg: Config) -> ReadArray:
@@ -120,7 +113,15 @@ def cluster_read_array(
     store = build_store(read_array, cfg.k, cfg.w)
     max_gap = max((c.size for c in store.min_codes), default=1)
     gap_table = GapPassTable(p_matrix, cfg.min_prob_no_hits, max_gap)
-    if cfg.nr_cores > 1:
+    if os.environ.get("NGSID_DISTRIBUTED") == "1":
+        # multi-process deployment: shards owned by the launcher's ranks,
+        # per-round results exchanged via all-gather (parallel/dist.py);
+        # result is replicated so every rank can write its own outputs.
+        from .parallel.dist import distributed_clustering, launcher_comm
+        with launcher_comm() as comm:
+            clusters, alive = distributed_clustering(
+                store, read_array, gap_table, cfg, comm)
+    elif cfg.nr_cores > 1:
         from .parallel.merge import merge_tree_clustering
         clusters, alive = merge_tree_clustering(store, read_array, gap_table, cfg)
     else:
@@ -174,14 +175,10 @@ def run(cfg: Config, stage_walls: Optional[dict] = None) -> None:
     ``stage_walls``: optional dict filled with per-stage wall seconds
     (sort / cluster / consensus_polish, and the stage-4 phases inside
     consensus_polish as stage4_draft / _trim / _rc / _polish).  Raises
-    ValueError for what this port cannot run yet (:func:`unsupported`), and
     RuntimeError when the cuda backend finds no CUDA device, before any
     work."""
     import time
 
-    reason = unsupported(cfg)
-    if reason:
-        raise ValueError(reason)
     backend = stats_backend_default()
     if backend in ("cuda", "torch"):
         stats_device(backend)

@@ -10,6 +10,8 @@ the same plain version on the card by chip_smoke.py.
 """
 
 import math
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -216,6 +218,55 @@ class TestWrapper:
         for r in rows:
             off = pool.offset(r)
             assert np.array_equal(buf[off: off + r.size], r)
+
+    def test_concurrent_ensure_keeps_every_row(self, rng):
+        """8 threads (ranks that run as threads share the process's pool)
+        each ensure 200 distinct rows, two per call, released together by a
+        barrier and switching often: every row must sit at its recorded offset, in the buffer
+        its own ensure returned and in the final one, and no two rows may
+        overlap."""
+        threads, per_thread = 8, 200
+        pool = port.SeqPool(CPU)
+        rows = [[rand_seq(rng, int(rng.integers(2_000, 30_000)))
+                 for _ in range(per_thread)] for _ in range(threads)]
+        start = threading.Barrier(threads)
+        held, errors = [[] for _ in range(threads)], []
+
+        def worker(t):
+            try:
+                start.wait()
+                for i in range(0, per_thread, 2):
+                    part = rows[t][i: i + 2]
+                    buf = pool.ensure(part)
+                    held[t].append((part, buf, pool.offsets(part)))
+            except BaseException as e:       # surfaced below
+                errors.append(e)
+
+        workers = [threading.Thread(target=worker, args=(t,), daemon=True)
+                   for t in range(threads)]
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)          # switch threads often
+        try:
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=120)
+        finally:
+            sys.setswitchinterval(switch)
+        assert not any(w.is_alive() for w in workers)
+        assert not errors, errors
+        assert pool.buf.numel() > port.SeqPool.CAP_MIN   # it grew meanwhile
+        final = pool.buf.numpy()
+        spans = []
+        for t in range(threads):
+            for part, buf, offs in held[t]:
+                for r, off in zip(part, offs.tolist()):
+                    assert np.array_equal(buf.numpy()[off: off + r.size], r)
+                    assert np.array_equal(final[off: off + r.size], r)
+                    spans.append((off, off + r.size))
+        spans.sort()
+        assert len(spans) == threads * per_thread
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
 
 
 class TestBackendChoice:

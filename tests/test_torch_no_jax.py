@@ -112,6 +112,43 @@ def test_offline_tool_run_imports_no_jax(tmp_path, tool):
     assert out.stat().st_size > 0
 
 
+@pytest.mark.parametrize("path", ["distributed_cli", "graft_entry"])
+def test_distributed_run_imports_no_jax(tiny_pool, tmp_path, path):
+    """Two ranks of the CLI with NGSID_DISTRIBUTED=1, started as a launcher
+    starts them, each checking its own modules; and graft_entry's forward,
+    its parallel train step and its clustering over 2 rank threads."""
+    from ngspeciesid_tpu_torch.parallel.dist import spawn_local
+
+    if path == "graft_entry":
+        code = ("import sys\n"
+                "from ngspeciesid_tpu_torch import graft_entry\n"
+                "fn, args = graft_entry.entry()\n"
+                "fn(*args)\n"
+                "graft_entry.train_step_check(2)\n"
+                "graft_entry.clustering_check(2)\n" + _NO_JAX)
+        proc = _run(["-c", code], "torch")
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert "NO_JAX_OK" in proc.stdout
+        return
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env.update(NGSID_STATS_BACKEND="torch", CUDA_VISIBLE_DEVICES="",
+               NGSID_DISTRIBUTED="1")
+    argvs = []
+    for r in range(2):
+        out = str(tmp_path / f"rank{r}")
+        code = ("import sys\n"
+                "from ngspeciesid_tpu_torch import cli\n"
+                f"rc = cli.main(['--ont', '--fastq', {tiny_pool!r},\n"
+                f"               '--outfolder', {out!r}])\n"
+                "assert rc == 0, rc\n" + _NO_JAX)
+        argvs.append([sys.executable, "-c", code])
+    logs = spawn_local(argvs, timeout_s=300, env=env, cwd=str(tmp_path))
+    for r, (stdout, stderr) in enumerate(logs):
+        assert "NO_JAX_OK" in stdout, stderr[-3000:]
+        assert f"rank {r} of 2" in stderr
+        assert (tmp_path / f"rank{r}" / "final_clusters.tsv").stat().st_size
+
+
 def test_cuda_backend_without_gpu_fails_loudly(tiny_pool, tmp_path):
     out = tmp_path / "out"
     proc = _run(["-m", "ngspeciesid_tpu_torch", "--ont", "--fastq", tiny_pool,

@@ -151,17 +151,6 @@ def test_cli_path_byte_equal_to_reference(pool, ref_run, tmp_path,
         assert first[name] == data, name
 
 
-@pytest.mark.parametrize("env, extra", [({"NGSID_DISTRIBUTED": "1"}, [])])
-def test_unported_paths_exit_1(pool, tmp_path, monkeypatch, env, extra):
-    monkeypatch.setenv("NGSID_STATS_BACKEND", "torch")
-    for key, value in env.items():
-        monkeypatch.setenv(key, value)
-    out = tmp_path / "out"
-    assert port_cli.main(["--ont", "--fastq", pool, "--outfolder", str(out)]
-                         + extra) == 1
-    assert not out.exists()
-
-
 def test_bad_window_exits_1(pool, tmp_path, monkeypatch):
     monkeypatch.setenv("NGSID_STATS_BACKEND", "torch")
     assert port_cli.main(["--fastq", pool, "--k", "30", "--w", "20",
