@@ -1,0 +1,12 @@
+"""Share of the window, in %, spent in stage 4's polish phase (pileup rounds over ops/poa): the ``stage4_polish``
+stage wall that ``pipeline.run`` reports, summed over the libraries."""
+
+
+def read(rec):
+    walls = [lib.walls[KEY] for lib in rec.libraries if KEY in lib.walls]
+    if not walls or rec.window_s <= 0:
+        return None
+    return 100.0 * sum(walls) / rec.window_s
+
+
+KEY = "stage4_polish"
