@@ -46,7 +46,8 @@ ported modules:
   graft_entry.py       driver entry points: the GRU forward, and a data-
                        and tensor-parallel dry run with the clustering
   pipeline.py, cli.py  the stages and the command line
-  stage_profile.py     stage walls, host profile and device time on a GPU
+  spans.py             host seconds and counts of named work, into the
+                       stage_walls of cli.main; profiler ranges when traced
 """
 
 __version__ = "0.1.0"

@@ -164,8 +164,11 @@ def args_to_config(args: argparse.Namespace) -> Config:
 
 def main(argv=None, stage_walls=None) -> int:
     """Run the CLI on ``argv``; returns the exit code.  ``stage_walls``: an
-    optional dict that receives the per-stage wall seconds (in-process
-    callers such as chip_smoke.py)."""
+    optional dict, the sink of the run's spans (in-process callers such as
+    the benchmark and chip_smoke.py): each span's host seconds under its
+    name, the count ``poa.reads``, and the older per-stage keys ``sort``,
+    ``cluster``, ``consensus_polish`` and ``stage4_*`` (``pipeline.run``
+    lists them)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     logging.basicConfig(

@@ -39,21 +39,22 @@ from __future__ import annotations
 
 import logging
 import math
-import time as _time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..config import Config
 from ..ops.align import block_stats_batch
+from ..spans import span
 from .store import ReadStore
 
 logger = logging.getLogger(__name__)
 
-#: Cumulative host walls of the engine's phases (seconds) — reset/read by
-#: bench.py to decompose the cluster stage (decide pass vs alignment DP vs
-#: conflict machinery).  Updated unconditionally; the overhead is two
-#: perf_counter() calls per phase invocation (~300 per 100k pass).
+#: Cumulative host seconds of the engine's phases, the decide pass, the
+#: alignment DP and the conflict scan: the seconds of the spans
+#: ``cluster.decide``, ``cluster.align`` and ``cluster.conflict`` (spans.py)
+#: summed since ``reset_perf_counters``, which the benchmark's harness calls
+#: before each library and reads after it.
 PERF_COUNTERS = {"decide_s": 0.0, "align_s": 0.0, "conflict_s": 0.0}
 
 
@@ -751,17 +752,18 @@ def reads_to_clusters(
                 rows_list = [r for r in pending if r in stale]
                 rows_arr = np.array(rows_list, dtype=np.int64)
                 snap = state.db.snapshot()
-                _t = _time.perf_counter()
-                spec = _decide_waves(store, rows_arr, snap, gap_table, cfg)
-                PERF_COUNTERS["decide_s"] += _time.perf_counter() - _t
+                with span("cluster.decide") as sp:
+                    spec = _decide_waves(store, rows_arr, snap, gap_table, cfg)
+                PERF_COUNTERS["decide_s"] += sp.seconds
                 aln_requests = [
                     (wi, rows_list[wi], spec[wi][2])
                     for wi in range(len(spec))
                     if spec[wi][0] < 0 and spec[wi][2]
                 ]
-                _t = _time.perf_counter()
-                aln_winners = _run_alignments(store, aln_requests, cfg, aln_cache)
-                PERF_COUNTERS["align_s"] += _time.perf_counter() - _t
+                with span("cluster.align") as sp:
+                    aln_winners = _run_alignments(store, aln_requests, cfg,
+                                                  aln_cache)
+                PERF_COUNTERS["align_s"] += sp.seconds
                 for wi, row in enumerate(rows_list):
                     dec = spec[wi][0]
                     if dec < 0:
@@ -775,15 +777,15 @@ def reads_to_clusters(
             # the stale set is the remaining rows intersecting the
             # committed new representatives — both are pure functions of
             # (codes, decisions, order), computed in one sorted join.
-            _t = _time.perf_counter()
-            pend_arr = np.asarray(pending, dtype=np.int64)
-            deg = hpol_lens[pend_arr] < cfg.k
-            dec_arr = np.fromiter((final_dec[r] for r in pending),
-                                  np.int64, count=len(pending))
-            is_new = (dec_arr < 0) & ~deg
-            conflict = _conflict_positions(
-                wcache, wave_n - len(pending), is_new)
-            PERF_COUNTERS["conflict_s"] += _time.perf_counter() - _t
+            with span("cluster.conflict") as sp:
+                pend_arr = np.asarray(pending, dtype=np.int64)
+                deg = hpol_lens[pend_arr] < cfg.k
+                dec_arr = np.fromiter((final_dec[r] for r in pending),
+                                      np.int64, count=len(pending))
+                is_new = (dec_arr < 0) & ~deg
+                conflict = _conflict_positions(
+                    wcache, wave_n - len(pending), is_new)
+            PERF_COUNTERS["conflict_s"] += sp.seconds
             hits = np.flatnonzero(
                 (conflict < np.arange(len(pending))) & ~deg)
             break_at = int(hits[0]) if hits.size else len(pending)

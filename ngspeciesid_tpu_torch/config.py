@@ -64,7 +64,7 @@ class Config:
     seed: int = 0                     # RNG seed for subsampling (reference is unseeded)
     align_band: int = 150             # DP band half-width (0 = full/reference-exact DP)
     resume: bool = False              # content-addressed stage artifact reuse
-    profile: bool = False             # JAX device trace + INFO stage timings
+    profile: bool = False             # torch.profiler trace + INFO stage timings
 
     def apply_preset(self, ont: bool = False, isoseq: bool = False) -> None:
         """--ont / --isoseq k,w presets (reference NGSpeciesID:261-269)."""

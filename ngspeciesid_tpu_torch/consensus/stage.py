@@ -28,16 +28,17 @@ import logging
 import os
 import re
 import shutil
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..config import Config
-from ..io.fastx import mkdir_p, read_fastx
+from ..io.fastx import mkdir_p, read_fastx, write_fastq_byte_records
 from ..ops.align import identity_batch
 from ..ops.edit import infix_search
-from ..ops.poa import msa_consensus_batch, polish_round
+from ..ops.mapping import map_reads_to_center, write_paf
+from ..ops.poa import msa_consensus_batch, orient_reads, polish_round
+from ..spans import span
 from ..utils.seqs import (
     bytes_to_str,
     reverse_complement,
@@ -349,20 +350,21 @@ def polish_sequences(centers: List[List], cfg: Config) -> List[List]:
         pattern = os.path.join(cfg.outfolder, "racon_cl_id_*")
     else:
         pattern = None
-    if pattern:
-        for folder in glob.glob(pattern):
-            shutil.rmtree(folder)
-    for f in glob.glob(os.path.join(cfg.outfolder, "consensus_reference_*")):
-        os.remove(f)
+    with span("polish.files"):
+        if pattern:
+            for folder in glob.glob(pattern):
+                shutil.rmtree(folder)
+        for f in glob.glob(os.path.join(cfg.outfolder, "consensus_reference_*")):
+            os.remove(f)
 
     for i, (nr_reads, c_id, center, all_reads) in enumerate(centers):
-        ref_file = os.path.join(cfg.outfolder, f"consensus_reference_{c_id}.fasta")
-        with open(ref_file, "w") as f:
-            f.write(f">consensus_cl_id_{c_id}_total_supporting_reads_{nr_reads}\n{center}\n")
-        records, seqs, quals = _pooled_reads(all_reads)
-        all_reads_file = os.path.join(cfg.outfolder, f"reads_to_consensus_{c_id}.fastq")
-        from ..io.fastx import write_fastq_byte_records
-        write_fastq_byte_records(all_reads_file, records)
+        with span("polish.files"):
+            ref_file = os.path.join(cfg.outfolder, f"consensus_reference_{c_id}.fasta")
+            with open(ref_file, "w") as f:
+                f.write(f">consensus_cl_id_{c_id}_total_supporting_reads_{nr_reads}\n{center}\n")
+            records, seqs, quals = _pooled_reads(all_reads)
+            all_reads_file = os.path.join(cfg.outfolder, f"reads_to_consensus_{c_id}.fastq")
+            write_fastq_byte_records(all_reads_file, records)
 
         if cfg.medaka:
             outdir = os.path.join(cfg.outfolder, f"medaka_cl_id_{c_id}")
@@ -373,7 +375,6 @@ def polish_sequences(centers: List[List], cfg: Config) -> List[List]:
             # RC-merged centers pool both orientations (consensus.py:167-180);
             # the reference's minimap2-driven polishers are strand-aware, so
             # flip reverse-strand reads before the pileup
-            from ..ops.poa import orient_reads
             p_seqs, p_quals, _ = orient_reads(polished, p_seqs, p_quals)
             if neural is not None:
                 model, neural_round = neural
@@ -384,12 +385,13 @@ def polish_sequences(centers: List[List], cfg: Config) -> List[List]:
                     polished = polish_round(polished, p_seqs, p_quals)
             centers[i][2] = bytes_to_str(polished)
             name = f"consensus_cl_id_{c_id}_total_supporting_reads_{nr_reads}"
-            if cfg.medaka_fastq:
-                with open(os.path.join(outdir, "consensus.fastq"), "w") as f:
-                    f.write(f"@{name}\n{centers[i][2]}\n+\n{'I' * len(centers[i][2])}\n")
-            else:
-                with open(os.path.join(outdir, "consensus.fasta"), "w") as f:
-                    f.write(f">{name}\n{centers[i][2]}\n")
+            with span("polish.files"):
+                if cfg.medaka_fastq:
+                    with open(os.path.join(outdir, "consensus.fastq"), "w") as f:
+                        f.write(f"@{name}\n{centers[i][2]}\n+\n{'I' * len(centers[i][2])}\n")
+                else:
+                    with open(os.path.join(outdir, "consensus.fasta"), "w") as f:
+                        f.write(f">{name}\n{centers[i][2]}\n")
         elif cfg.racon:
             outdir = os.path.join(cfg.outfolder, f"racon_cl_id_{c_id}")
             mkdir_p(outdir)
@@ -397,24 +399,26 @@ def polish_sequences(centers: List[List], cfg: Config) -> List[List]:
             polished = seq_bytes(center)
             p_seqs, _, p_idx = _polish_subset(seqs, quals)
             p_names = [records[i][0] for i in p_idx]
-            from ..ops.poa import orient_reads
             p_seqs, _, _ = orient_reads(polished, p_seqs)
             for it in range(cfg.racon_iter):
                 # per-iteration read->center PAF, the reference's minimap2
                 # observability artifact (consensus.py:118-121); the polish
                 # itself aligns reads exactly with the batched DP
-                from ..ops.mapping import map_reads_to_center, write_paf
-                mappings = map_reads_to_center(polished, p_seqs)
-                write_paf(
-                    os.path.join(outdir, f"mapping_it_{it}.paf"),
-                    p_names, mappings,
-                    f"consensus_cl_id_{c_id}")
+                with span("poa.orient"):
+                    mappings = map_reads_to_center(polished, p_seqs)
+                with span("polish.files"):
+                    write_paf(
+                        os.path.join(outdir, f"mapping_it_{it}.paf"),
+                        p_names, mappings,
+                        f"consensus_cl_id_{c_id}")
                 polished = polish_round(polished, p_seqs)
-                with open(os.path.join(outdir, f"racon_polished_it_{it}.fasta"), "w") as f:
-                    f.write(f">consensus_cl_id_{c_id}\n{bytes_to_str(polished)}\n")
+                with span("polish.files"):
+                    with open(os.path.join(outdir, f"racon_polished_it_{it}.fasta"), "w") as f:
+                        f.write(f">consensus_cl_id_{c_id}\n{bytes_to_str(polished)}\n")
             centers[i][2] = bytes_to_str(polished)
-            with open(os.path.join(outdir, "consensus.fasta"), "w") as f:
-                f.write(f">consensus_cl_id_{c_id}\n{centers[i][2]}\n")
+            with span("polish.files"):
+                with open(os.path.join(outdir, "consensus.fasta"), "w") as f:
+                    f.write(f">consensus_cl_id_{c_id}\n{centers[i][2]}\n")
     return centers
 
 
@@ -429,40 +433,37 @@ def run_consensus_stage(
     work_dir: str,
     abundance_cutoff: int,
     cfg: Config,
-    walls: Optional[dict] = None,
 ) -> List[List]:
-    """``walls``: optional dict that receives the host wall seconds of the
-    phases ``draft``, ``trim``, ``rc`` and ``polish`` (summed over the
-    post-polish recheck)."""
-    walls = {} if walls is None else walls
-    for phase in ("draft", "trim", "rc", "polish"):
-        walls[phase] = 0.0
-
-    def timed(phase, fn, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        walls[phase] += time.perf_counter() - t0
-        return out
-
-    centers = timed("draft", form_draft_consensus, clusters, rep_scores,
-                    sorted_reads_fastq_file, work_dir, abundance_cutoff, cfg)
+    """The phases, each in its span: ``stage4.draft``, ``stage4.trim``,
+    ``stage4.rc`` and ``stage4.polish`` (summed over the post-polish
+    recheck)."""
+    with span("stage4.draft"):
+        centers = form_draft_consensus(clusters, rep_scores,
+                                       sorted_reads_fastq_file, work_dir,
+                                       abundance_cutoff, cfg)
     barcodes = None
     if cfg.primer_file or cfg.remove_universal_tails:
         barcodes = (
             get_universal_tails() if cfg.remove_universal_tails
             else read_barcodes(cfg.primer_file)
         )
-        timed("trim", remove_barcodes, centers, barcodes, cfg)
+        with span("stage4.trim"):
+            remove_barcodes(centers, barcodes, cfg)
     logger.debug("%d centers formed", len(centers))
-    centers_filtered = timed("rc", detect_reverse_complements, centers,
-                             cfg.rc_identity_threshold, band=cfg.align_band)
-    centers_polished = timed("polish", polish_sequences, centers_filtered, cfg)
+    with span("stage4.rc"):
+        centers_filtered = detect_reverse_complements(
+            centers, cfg.rc_identity_threshold, band=cfg.align_band)
+    with span("stage4.polish"):
+        centers_polished = polish_sequences(centers_filtered, cfg)
     if barcodes is not None:
         # post-polish recheck (reference NGSpeciesID:148-152)
-        if timed("trim", remove_barcodes, centers_polished, barcodes, cfg):
-            centers_filtered = timed(
-                "rc", detect_reverse_complements, centers_polished,
-                cfg.rc_identity_threshold, band=cfg.align_band)
-            centers_polished = timed("polish", polish_sequences,
-                                     centers_filtered, cfg)
+        with span("stage4.trim"):
+            trimmed = remove_barcodes(centers_polished, barcodes, cfg)
+        if trimmed:
+            with span("stage4.rc"):
+                centers_filtered = detect_reverse_complements(
+                    centers_polished, cfg.rc_identity_threshold,
+                    band=cfg.align_band)
+            with span("stage4.polish"):
+                centers_polished = polish_sequences(centers_filtered, cfg)
     return centers_polished

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..device import stats_backend_default, stats_device
+from ..spans import span
 from .align import DIAG, LEFT, NEG_INF, UP, _bucket_width
 from .align_stats import (
     SeqPool,
@@ -353,22 +354,26 @@ def sg_moves_pool_torch(
         return []
     if device is None:
         device = stats_device(stats_backend_default())
-    pool = SeqPool(torch.device(device))
-    buf = pool.ensure([seqs[r] for r in
-                       dict.fromkeys(list(rows1) + list(rows2))])
-    chunks = _plan(seqs, rows1, rows2)
-    launched = []
-    for sl in chunks:
-        B = len(sl)
-        pm, base, W, d_max, len1, len2 = stage_chunk(
-            pool, seqs, [rows1[i] for i in sl], [rows2[i] for i in sl],
-            [gap_opens[i] for i in sl], [0] * B, [0] * B, band)
-        best, ops = moves_rows(buf, pm, base, W, d_max, band, match,
-                               mismatch, gap_ext)
-        launched.append((best, ops, len1, len2))
+    with span("moves.stage"):
+        pool = SeqPool(torch.device(device))
+        buf = pool.ensure([seqs[r] for r in
+                           dict.fromkeys(list(rows1) + list(rows2))])
+        chunks = _plan(seqs, rows1, rows2)
+        launched = []
+        for sl in chunks:
+            B = len(sl)
+            pm, base, W, d_max, len1, len2 = stage_chunk(
+                pool, seqs, [rows1[i] for i in sl], [rows2[i] for i in sl],
+                [gap_opens[i] for i in sl], [0] * B, [0] * B, band)
+            best, ops = moves_rows(buf, pm, base, W, d_max, band, match,
+                                   mismatch, gap_ext)
+            launched.append((best, ops, len1, len2))
     out: List[Optional[np.ndarray]] = [None] * n_pairs
     for sl, (best, ops, len1, len2) in zip(chunks, launched):
-        res = _reconstruct(best.cpu().numpy(), ops.cpu().numpy(), len1, len2)
+        with span("moves.wait"):
+            best, ops = best.cpu().numpy(), ops.cpu().numpy()
+        with span("moves.reconstruct"):
+            res = _reconstruct(best, ops, len1, len2)
         for i, r in zip(sl, res):
             out[i] = r
     return out  # type: ignore[return-value]

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import stats_backend_default, stats_device
+from ..spans import span
 from .align import NEG_INF, _bucket_width
 
 MAX_K = 30  # history bits must fit int32
@@ -651,24 +652,28 @@ def sg_stats_pool_torch(
         raise ValueError(f"stats DP requires 1 <= k <= {MAX_K}")
     if device is None:
         device = stats_device(stats_backend_default())
-    pool = device_pool(torch.device(device))
-    buf = pool.ensure([seqs[r] for r in
-                       dict.fromkeys(list(rows1) + list(rows2))])
-    chunks = _plan_chunks(seqs, rows1, rows2)
-    futures = []
-    for sl in chunks:
-        futures.append(_launch_chunk(
-            pool, buf, seqs, [rows1[i] for i in sl], [rows2[i] for i in sl],
-            [gap_opens[i] for i in sl], [ks[i] for i in sl],
-            [match_ids[i] for i in sl], match, mismatch, gap_ext, band))
-    host = torch.cat([f[0] for f in futures]).cpu().numpy()
+    with span("stats.stage"):
+        pool = device_pool(torch.device(device))
+        buf = pool.ensure([seqs[r] for r in
+                           dict.fromkeys(list(rows1) + list(rows2))])
+        chunks = _plan_chunks(seqs, rows1, rows2)
+        futures = []
+        for sl in chunks:
+            futures.append(_launch_chunk(
+                pool, buf, seqs, [rows1[i] for i in sl],
+                [rows2[i] for i in sl], [gap_opens[i] for i in sl],
+                [ks[i] for i in sl], [match_ids[i] for i in sl], match,
+                mismatch, gap_ext, band))
+    with span("stats.wait"):
+        host = torch.cat([f[0] for f in futures]).cpu().numpy()
     out: List[Optional[Tuple[float, float, float]]] = [None] * n_pairs
     at = 0
-    for sl, fut in zip(chunks, futures):
-        res = _gather_chunk(host[at: at + len(sl)], *fut[1:])
-        at += len(sl)
-        for i, r in zip(sl, res):
-            out[i] = r
+    with span("stats.gather"):
+        for sl, fut in zip(chunks, futures):
+            res = _gather_chunk(host[at: at + len(sl)], *fut[1:])
+            at += len(sl)
+            for i, r in zip(sl, res):
+                out[i] = r
     return out  # type: ignore[return-value]
 
 

@@ -38,6 +38,7 @@ import numpy as np
 
 from .align import DIAG, LEFT, UP, sg_align_batch
 from ..device import stats_backend_default
+from ..spans import count, span
 from ..utils.phred import PHRED_TO_P_CAPPED
 
 _BASE_TO_COL = np.full(256, -1, dtype=np.int64)
@@ -223,15 +224,17 @@ def msa_consensus_batch(
             break
         pairs = []
         cons_maps = []
-        for ci in todo:
-            cons, cols = profiles[ci].consensus_and_map()
-            pairs.append((cons, capped[ci][r]))
-            cons_maps.append(cols)
+        with span("poa.fold"):
+            for ci in todo:
+                cons, cols = profiles[ci].consensus_and_map()
+                pairs.append((cons, capped[ci][r]))
+                cons_maps.append(cols)
         moves = sg_align_batch(pairs, [POA_OPEN] * len(pairs),
                                match=POA_MATCH, mismatch=POA_MISMATCH,
                                gap_ext=POA_EXT, band=POA_BAND)
-        for ci, mv, cols in zip(todo, moves, cons_maps):
-            profiles[ci].add_aligned(capped[ci][r], mv, cols)
+        with span("poa.fold"):
+            for ci, mv, cols in zip(todo, moves, cons_maps):
+                profiles[ci].add_aligned(capped[ci][r], mv, cols)
     return [p.consensus() if p is not None else np.zeros(0, np.uint8)
             for p in profiles]
 
@@ -368,6 +371,15 @@ def pileup_stats(
                                match=POA_MATCH, mismatch=POA_MISMATCH,
                                gap_ext=POA_EXT, backend=backend,
                                band=POA_BAND)
+    count("poa.reads", len(reads))
+    with span("poa.walk"):
+        _walk(st, center, reads, quals, windows, moves_all)
+    return st
+
+
+def _walk(st: PileupStats, center, reads, quals, windows, moves_all) -> None:
+    """Accumulate each read's moves against the center into ``st``."""
+    L = center.size
     votes, qvotes = st.votes, st.qvotes
     ins_votes, ins_open = st.ins_votes, st.ins_open
     for ri_read, moves in enumerate(moves_all):
@@ -436,7 +448,6 @@ def pileup_stats(
             if r_done < read.size:
                 add_ins(L, r_done, read.size)
         st.coverage[wl + ci0 : wl + ci_end + 1] += 1.0
-    return st
 
 
 #: Anchor-bounded polish gate: centers at least this long compute mapper
@@ -469,18 +480,19 @@ def orient_reads(
     from .mapping import map_reads_to_center
     from ..utils.seqs import reverse_complement_bytes
 
-    mappings = map_reads_to_center(center, reads)
-    out_s: List[np.ndarray] = []
-    out_q: Optional[List[np.ndarray]] = [] if quals is not None else None
-    for i, m in enumerate(mappings):
-        if m is not None and m.strand == "-":
-            out_s.append(reverse_complement_bytes(reads[i]))
-            if out_q is not None:
-                out_q.append(quals[i][::-1])
-        else:
-            out_s.append(reads[i])
-            if out_q is not None:
-                out_q.append(quals[i])
+    with span("poa.orient"):
+        mappings = map_reads_to_center(center, reads)
+        out_s: List[np.ndarray] = []
+        out_q: Optional[List[np.ndarray]] = [] if quals is not None else None
+        for i, m in enumerate(mappings):
+            if m is not None and m.strand == "-":
+                out_s.append(reverse_complement_bytes(reads[i]))
+                if out_q is not None:
+                    out_q.append(quals[i][::-1])
+            else:
+                out_s.append(reads[i])
+                if out_q is not None:
+                    out_q.append(quals[i])
     return out_s, out_q, mappings
 
 
@@ -537,10 +549,19 @@ def polish_round(
         return center
     if windows is None and auto_window and center.size >= AUTO_WINDOW_MIN_CENTER:
         from .mapping import map_reads_to_center
-        windows = polish_windows(center, reads, map_reads_to_center(center, reads))
+        with span("poa.orient"):
+            mappings = map_reads_to_center(center, reads)
+        windows = polish_windows(center, reads, mappings)
     st = pileup_stats(center, reads, quals, windows)
+    with span("poa.call"):
+        return _call(center, st, quals is not None)
+
+
+def _call(center: np.ndarray, st: PileupStats, weighted: bool) -> np.ndarray:
+    """The polished sequence from the pileup: each column's call, then the
+    insertion slots."""
     L = center.size
-    votes = st.qvotes if quals is not None else st.votes
+    votes = st.qvotes if weighted else st.votes
     coverage = st.coverage
     unit_votes = st.votes
     # Vectorized per-column call (VERDICT r3 item 5): identical decisions to

@@ -28,6 +28,7 @@ import numpy as np
 from ..config import Config
 from ..cluster.engine import GapPassTable, MinimizerDB, reads_to_clusters
 from ..cluster.store import ReadStore
+from ..spans import span
 from ..io.fastx import mkdir_p
 
 logger = logging.getLogger(__name__)
@@ -174,7 +175,8 @@ def merge_tree_clustering(
         ]
         logger.debug("number of representatives left to cluster: %d", len(read_array))
         pruned = {rid: all_clusters[rid] for rid in surviving}
-        _print_intermediate(pruned, store, cfg, it)
+        with span("merge.dump"):
+            _print_intermediate(pruned, store, cfg, it)
         all_clusters = pruned
 
         it += 1

@@ -29,6 +29,7 @@ from .consensus.stage import run_consensus_stage
 from .device import stats_backend_default, stats_device
 from .io.fastx import mkdir_p, read_fastx
 from .preprocess import score_and_sort
+from .spans import sink, span
 from .utils.ptable import load_p_table, p_table_as_matrix
 
 logger = logging.getLogger(__name__)
@@ -108,11 +109,11 @@ def cluster_read_array(
             clusters = load_clusters(hit[0])
             store = build_store(read_array, cfg.k, cfg.w)
             return clusters, store, list(clusters.keys())
-    p_table = load_p_table(cfg.k, cfg.w)
-    p_matrix = p_table_as_matrix(p_table)
-    store = build_store(read_array, cfg.k, cfg.w)
-    max_gap = max((c.size for c in store.min_codes), default=1)
-    gap_table = GapPassTable(p_matrix, cfg.min_prob_no_hits, max_gap)
+    with span("cluster.build"):
+        p_matrix = p_table_as_matrix(load_p_table(cfg.k, cfg.w))
+        store = build_store(read_array, cfg.k, cfg.w)
+        max_gap = max((c.size for c in store.min_codes), default=1)
+        gap_table = GapPassTable(p_matrix, cfg.min_prob_no_hits, max_gap)
     if os.environ.get("NGSID_DISTRIBUTED") == "1":
         # multi-process deployment: shards owned by the launcher's ranks,
         # per-round results exchanged via all-gather (parallel/dist.py);
@@ -172,13 +173,18 @@ def write_cluster_tables(
 def run(cfg: Config, stage_walls: Optional[dict] = None) -> None:
     """Full pipeline (reference main, NGSpeciesID:36-158).
 
-    ``stage_walls``: optional dict filled with per-stage wall seconds
-    (sort / cluster / consensus_polish, and the stage-4 phases inside
-    consensus_polish as stage4_draft / _trim / _rc / _polish).  Raises
-    RuntimeError when the cuda backend finds no CUDA device, before any
-    work."""
-    import time
-
+    ``stage_walls``: optional dict, the sink of the run's spans
+    (``spans.py``): the host seconds of each span under its name (the
+    stages ``stage1.sort``, ``run.load``, ``stage23.cluster``,
+    ``stage3.tables``, ``stage4`` and its phases ``stage4.draft``,
+    ``.trim``, ``.rc``, ``.polish``; inside them ``cluster.*``,
+    ``merge.dump``, ``poa.*``, ``polish.files``, ``moves.*`` and
+    ``stats.*``), the count ``poa.reads``, and under the older keys
+    ``sort``, ``cluster``, ``consensus_polish`` and ``stage4_draft`` /
+    ``_trim`` / ``_rc`` / ``_polish`` the seconds of ``stage1.sort``,
+    ``stage23.cluster``, ``stage4`` and its phases (``stage4_*`` only with
+    --consensus, ``stage4_trim`` 0 without trimming).  Raises RuntimeError
+    when the cuda backend finds no CUDA device, before any work."""
     backend = stats_backend_default()
     if backend in ("cuda", "torch"):
         stats_device(backend)
@@ -199,42 +205,8 @@ def run(cfg: Config, stage_walls: Optional[dict] = None) -> None:
         prof = torch.profiler.profile(activities=activities)
         prof.start()
     try:
-        t0 = time.time()
-        sorted_path = score_and_sort(cfg)
-        stage_walls["sort"] = time.time() - t0
-        stage_log("elapsed time sorting: %.2fs", stage_walls["sort"])
-        read_array = load_read_array(sorted_path, cfg)
-        abundance_cutoff = int(cfg.abundance_ratio * len(read_array))
-
-        logger.info("Starting Clustering: %d reads", len(read_array))
-        t0 = time.time()
-        clusters, store, alive = cluster_read_array(read_array, cfg, sorted_path)
-        stage_walls["cluster"] = time.time() - t0
-        stage_log("Time elapsed clustering: %.2fs", stage_walls["cluster"])
-        nontrivial = write_cluster_tables(clusters, store, cfg)
-        logger.info("Finished Clustering: %d clusters formed", nontrivial)
-
-        if cfg.consensus:
-            logger.info("Starting Consensus creation and polishing")
-            work_dir = tempfile.mkdtemp()
-            logger.debug(
-                "Forming draft consensus with abundance_cutoff >= %d (%s%% of %d reads)",
-                abundance_cutoff, cfg.abundance_ratio * 100, len(read_array),
-            )
-            rep_scores = {int(store.ids[store.row(c)]): float(store.scores[store.row(c)])
-                          for c in clusters}
-            phases: dict = {}
-            t0 = time.time()
-            centers = run_consensus_stage(
-                clusters, rep_scores, sorted_path, work_dir, abundance_cutoff,
-                cfg, walls=phases)
-            stage_walls["consensus_polish"] = time.time() - t0
-            for phase, wall in phases.items():
-                stage_walls[f"stage4_{phase}"] = wall
-            stage_log("Time elapsed consensus+polish: %.2fs",
-                      stage_walls["consensus_polish"])
-            shutil.rmtree(work_dir)
-            logger.info("Finished Consensus creation: %d created", len(centers))
+        with sink(stage_walls):
+            _run_stages(cfg, stage_walls, stage_log)
     finally:
         if prof is not None:
             prof.stop()
@@ -243,6 +215,46 @@ def run(cfg: Config, stage_walls: Optional[dict] = None) -> None:
             trace = os.path.join(trace_dir, "trace.json")
             prof.export_chrome_trace(trace)
             logger.info("Profiling: trace -> %s", trace)
+
+
+def _run_stages(cfg: Config, walls: dict, stage_log) -> None:
+    with span("stage1.sort"):
+        sorted_path = score_and_sort(cfg)
+    walls["sort"] = walls["stage1.sort"]
+    stage_log("elapsed time sorting: %.2fs", walls["sort"])
+    with span("run.load"):
+        read_array = load_read_array(sorted_path, cfg)
+    abundance_cutoff = int(cfg.abundance_ratio * len(read_array))
+
+    logger.info("Starting Clustering: %d reads", len(read_array))
+    with span("stage23.cluster"):
+        clusters, store, alive = cluster_read_array(read_array, cfg, sorted_path)
+    walls["cluster"] = walls["stage23.cluster"]
+    stage_log("Time elapsed clustering: %.2fs", walls["cluster"])
+    with span("stage3.tables"):
+        nontrivial = write_cluster_tables(clusters, store, cfg)
+    logger.info("Finished Clustering: %d clusters formed", nontrivial)
+
+    if cfg.consensus:
+        logger.info("Starting Consensus creation and polishing")
+        work_dir = tempfile.mkdtemp()
+        logger.debug(
+            "Forming draft consensus with abundance_cutoff >= %d (%s%% of %d reads)",
+            abundance_cutoff, cfg.abundance_ratio * 100, len(read_array),
+        )
+        rep_scores = {int(store.ids[store.row(c)]): float(store.scores[store.row(c)])
+                      for c in clusters}
+        with span("stage4"):
+            centers = run_consensus_stage(
+                clusters, rep_scores, sorted_path, work_dir, abundance_cutoff,
+                cfg)
+        walls["consensus_polish"] = walls["stage4"]
+        for phase in ("draft", "trim", "rc", "polish"):
+            walls[f"stage4_{phase}"] = walls.get(f"stage4.{phase}", 0.0)
+        stage_log("Time elapsed consensus+polish: %.2fs",
+                  walls["consensus_polish"])
+        shutil.rmtree(work_dir)
+        logger.info("Finished Consensus creation: %d created", len(centers))
 
 
 def write_fastq_subcommand(clusters_path: str, fastq: str, outfolder: str, n_min: int) -> None:
