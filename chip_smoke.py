@@ -58,6 +58,16 @@ Phases, each fatal on failure:
    e. the geometry sweep: the same shapes, and the full DP at the polish
       shape, under every register-mode launch geometry with 1-8 pairs per
       block, and memory mode.
+   f. pileup kernel (csrc/pileup_kernel.cu) at the plate's polish shape
+      (one 700 bp center against 350 reads of 650-750 bp, band 150):
+      poa.pileup_stats on cuda bit-equal to the host walk (poa._walk) over
+      the same moves kernel's moves, every dict of insertion votes in the
+      same order, with and without qualities and with per-read windows;
+      the walk and reduction launches of a call timed (CUDA events, warm
+      median) against the bound (its inputs read and its outputs written
+      once) and the plain version's time on the CPU; the host side of a
+      call (the launches, both copies and the event fold) against the
+      host walk over the same moves, both timed on the host clock.
 3. Main path: simulates a 20,000-read pool (50 species, 700 bp, 7% error)
    with the port's simulator and runs the CLI in-process with
    --consensus --medaka, on the default backend (cuda) and on the native
@@ -66,7 +76,9 @@ Phases, each fatal on failure:
    have launched in the cuda run and neither in the native run; the cuda
    run's pairs per launch are printed as a histogram.  A second
    run (5,000 reads, 20 species, --consensus --racon --racon_iter 2)
-   covers the racon files, PAFs included, the same way.  A third (c) runs
+   covers the racon files, PAFs included, the same way.  The pileup
+   kernel must have walked every polished read of the cuda run
+   (poa.walk_card = poa.reads) and must not run on native.  A third (c) runs
    the 20k pool with --medaka_model and the in-repo GRU weights: besides
    the above, one GRU forward per polished center, on cuda:0 in the cuda
    run and on the CPU in the native run; it prints the GRU's device time
@@ -156,6 +168,10 @@ STATS_TIMED = ((4096, 700, 150), (128, 700, 150), (128, 700, 0),
 MOVES_TIMED = ((512, 700, 150), (100, 700, 150), (100, 700, 0),
                (100, 1400, 0), (256, 700, 150, (520, 880)),
                (512, 700, 150, (520, 880)))
+#: The pileup kernel's timed shape, (reads, center length): a polish call of
+#: the COI plate (benchmark/configs/coi_plate.json: up to 500 reads a
+#: cluster, 658 bp cores between primers).
+PILEUP_TIMED = (350, 700)
 #: H100 SXM peaks (NVIDIA's H100 data sheet and architecture white paper):
 #: device memory bytes per second and int32 operations per second.
 HBM_BYTES_PER_S = 3.35e12
@@ -528,6 +544,106 @@ def phase_kernel_times(A, M, dev, plain=True):
     return out
 
 
+def same_pileup(got, want):
+    """Whether two PileupStats are the same bits, dict order included."""
+    for field in ("votes", "qvotes", "coverage", "ins_open"):
+        a, b = getattr(got, field), getattr(want, field)
+        if a.shape != b.shape or a.tobytes() != b.tobytes():
+            return False
+    return ([list(d.items()) for d in got.ins_votes]
+            == [list(d.items()) for d in want.ins_votes])
+
+
+def phase_pileup_kernel(M, dev):
+    """Phase 2f: the pileup kernel at the plate's polish shape, bit-equal to
+    the host walk, then timed; returns its row."""
+    import numpy as np
+    import torch
+
+    from ngspeciesid_tpu_torch.ops import pileup, poa
+    from ngspeciesid_tpu_torch.ops.align import sg_align_batch
+    from ngspeciesid_tpu_torch.ops.align_stats import pair_rows
+
+    rng = np.random.default_rng(11)
+    n, length = PILEUP_TIMED
+    center, reads = polish_shape(rng, n, length)
+    quals = [rng.integers(38, 75, size=r.size).astype(np.uint8)
+             for r in reads]
+    L = center.size
+    windows = np.zeros((n, 2), np.int32)
+    windows[:, 1] = L
+    windows[: n // 3, 0] = 40                    # a third windowed at each
+    windows[n // 3: 2 * n // 3, 1] = L - 40      # end
+    os.environ["NGSID_STATS_BACKEND"] = "cuda"
+    walk_s = []
+    try:
+        for q, win in ((quals, None), (None, None), (quals, windows)):
+            got = poa.pileup_stats(center, reads, q, win)
+            pairs = [(center if win is None else center[win[i, 0]:win[i, 1]],
+                      r) for i, r in enumerate(reads)]
+            moves = sg_align_batch(pairs, [poa.POA_OPEN] * n,
+                                   match=poa.POA_MATCH,
+                                   mismatch=poa.POA_MISMATCH,
+                                   gap_ext=poa.POA_EXT, backend="cuda",
+                                   band=poa.POA_BAND)
+            want = poa.PileupStats(L)
+            t0 = time.perf_counter()
+            poa._walk(want, center, reads, q, win, moves)
+            walk_s.append(time.perf_counter() - t0)
+            if not same_pileup(got, want):
+                raise AssertionError(
+                    f"pileup kernel differs from the host walk (qualities "
+                    f"{q is not None}, windows {win is not None})")
+    finally:
+        del os.environ["NGSID_STATS_BACKEND"]
+    log(f"pileup kernel == host walk at {n} reads x {L} bp (with and "
+        f"without qualities, with windows)")
+
+    seqs, r1, r2 = pair_rows([(center, r) for r in reads])
+    scoring = (poa.POA_MATCH, poa.POA_MISMATCH, poa.POA_EXT)
+    pool, chunks = M.launch_moves_pool(seqs, r1, r2, [poa.POA_OPEN] * n,
+                                       *scoring, poa.POA_BAND, dev)
+
+    c = pileup.stage_call(L, reads, quals, None, chunks, dev)
+    ms = time_cuda(lambda: pileup.launch(pool, chunks, c), 21)
+    n_ev = int(c.stats[-1])
+    cpu = torch.device("cpu")
+    chunks_cpu = [ch._replace(pm=ch.pm.cpu(), best=ch.best.cpu(),
+                              ops=ch.ops.cpu()) for ch in chunks]
+    c_cpu = pileup.stage_call(L, reads, quals, None, chunks_cpu, cpu)
+    pool_cpu = pool.cpu()
+    t0 = time.perf_counter()
+    pileup.launch(pool_cpu, chunks_cpu, c_cpu)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(c_cpu.stats, c.stats.cpu())
+            and torch.equal(c_cpu.evout[:n_ev], c.evout[:n_ev].cpu())):
+        raise AssertionError("pileup kernel differs from the plain version")
+    # bytes: each pair's op stream, endpoint row and pair-table row, its
+    # read's bases and qualities, and the per-read table in; the column
+    # counts and the packed events out
+    nbytes = (sum(ch.ops.numel() + ch.best.numel() * 4 + ch.pm.numel() * 8
+                  for ch in chunks)
+              + sum(r.size for r in reads) + sum(q.size for q in quals)
+              + 24 * n + c.stats.numel() * 8 + n_ev * 16)
+    bound, by = bound_ms(nbytes, 0)
+
+    def host_call():
+        poa.pileup_from_chunks(L, reads, quals, None, pool, chunks)
+
+    host_call()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        host_call()
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    row = dict(reads=n, length=L, band=poa.POA_BAND, chunks=len(chunks),
+               events=n_ev, bytes=nbytes, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=by, host_ms=host_ms,
+               host_us_per_read=host_ms * 1e3 / n,
+               walk_ms=walk_s[0] * 1e3, walk_us_per_read=walk_s[0] * 1e6 / n)
+    log(f"pileup kernel at {n} reads x {L} bp: {json.dumps(row)}")
+    return row
+
+
 def phase_geometry_sweep(A, M, F, dev):
     """The kernels' time at each timed shape under every register-mode
     geometry with 1, 2, 4 or 8 pairs per block, and memory mode (CUDA
@@ -892,6 +1008,8 @@ def run_backends(A, M, work, pool, args, gru=False):
     from ngspeciesid_tpu_torch.cluster import engine
     from ngspeciesid_tpu_torch.models import polisher
 
+    from ngspeciesid_tpu_torch.ops import pileup
+
     asked = {"stats": 0, "moves": 0}
     calls = {"stats": (A, "sg_stats_pool_torch"),
              "moves": (M, "sg_moves_pool_torch")}
@@ -913,6 +1031,7 @@ def run_backends(A, M, work, pool, args, gru=False):
         asked.update(stats=0, moves=0)
         A.reset_counts()
         M.reset_counts()
+        pileup.reset_counts()
         polisher.FORWARDS.clear()
         engine.reset_perf_counters()
         t0 = time.perf_counter()
@@ -931,12 +1050,23 @@ def run_backends(A, M, work, pool, args, gru=False):
             raise AssertionError(f"CLI with backend {backend} exited {rc}")
         counts = {"stats": (A.LAUNCHES, A.PAIRS), "moves": (M.LAUNCHES,
                                                            M.PAIRS)}
+        walked = (pileup.LAUNCHES, pileup.READS)
         if backend == "cuda":
             sizes = {"stats": list(A.SIZES), "moves": list(M.SIZES)}
-        results[backend] = (counts, dict(asked), dict(polisher.FORWARDS))
+            if not (pileup.READS == walls.get("poa.walk_card")
+                    == walls.get("poa.reads") > 0):
+                raise AssertionError(
+                    f"the pileup kernel walked {pileup.READS} reads, "
+                    f"poa.walk_card {walls.get('poa.walk_card')}, polished "
+                    f"reads {walls.get('poa.reads')}")
+        elif walked != (0, 0):
+            raise AssertionError("the native run launched the pileup kernel")
+        results[backend] = (counts, dict(asked), dict(polisher.FORWARDS),
+                            walked)
         log(f"[{backend}] {' '.join(args)}: wall {wall} s, stage walls "
             f"{json.dumps(walls)}, kernel launches/pairs {json.dumps(counts)}"
-            f", pairs asked {json.dumps(asked)}, GRU forwards "
+            f", pairs asked {json.dumps(asked)}, pileup kernel launches/"
+            f"reads {json.dumps(walked)}, GRU forwards "
             f"{json.dumps(polisher.FORWARDS)}, engine phases "
             f"{json.dumps(engine.PERF_COUNTERS)}")
     del os.environ["NGSID_STATS_BACKEND"]
@@ -956,7 +1086,7 @@ def run_backends(A, M, work, pool, args, gru=False):
     log(f"{len(cuda)} output files byte-equal between cuda and native "
         f"({len(polished)} polished centers, "
         f"{sum(len(v) for v in cuda.values())} bytes)")
-    counts, asked_cuda, _ = results["cuda"]
+    counts, asked_cuda, _, walked = results["cuda"]
     for kind in ("stats", "moves"):
         launches, pairs = counts[kind]
         if launches == 0 or pairs != asked_cuda[kind]:
@@ -974,7 +1104,9 @@ def run_backends(A, M, work, pool, args, gru=False):
     for kind in ("stats", "moves"):
         log(f"[cuda] {kind} kernel pairs per launch: "
             f"{json.dumps(histogram(sizes[kind]))}")
-    return {kind: counts[kind][0] for kind in counts}, sizes
+    launches = {kind: counts[kind][0] for kind in counts}
+    launches["pileup"] = walked[0]
+    return launches, sizes
 
 
 def histogram(sizes):
@@ -1350,6 +1482,7 @@ def main(argv=None):
     full_launches, full = phase_full_dp_kernel(F, M, dev)
     times = phase_kernel_times(A, M, dev)
     phase_geometry_sweep(A, M, F, dev)
+    pileup_row = phase_pileup_kernel(M, dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         pool20k = os.path.join(work, "pool20k.fastq")
@@ -1400,6 +1533,10 @@ def main(argv=None):
              source="ngspeciesid_tpu_torch/csrc/full_dp_kernel.cu",
              replaces="ngspeciesid_tpu/ops/align_pallas.py:45",
              launches=full_launches, library_ms=None, **full),
+        dict(name="pileup_kernel", route="cuda",
+             source="ngspeciesid_tpu_torch/csrc/pileup_kernel.cu",
+             replaces=None, launches=launches["pileup"], library_ms=None,
+             **pileup_row),
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -35,8 +35,9 @@ runs banded and nothing falls back to the full host DP.
 
 from __future__ import annotations
 
+import collections.abc
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -332,6 +333,91 @@ def _reconstruct(best, ops, len1, len2) -> List[np.ndarray]:
     return out
 
 
+class MovesChunk(NamedTuple):
+    """One launched chunk of :func:`launch_moves_pool`, still on the
+    device: the request indices of its pairs in launch order, its pair
+    table ``pm`` ((B, 8) int64: len1, len2, gap_open, -, -, off1, off2, -;
+    offsets into the call's pool tensor), the kernel's ``best`` and ``ops``
+    (:func:`moves_rows`) and the host-side lengths."""
+    idx: List[int]
+    pm: torch.Tensor
+    best: torch.Tensor
+    ops: torch.Tensor
+    len1: np.ndarray
+    len2: np.ndarray
+
+
+def launch_moves_pool(
+    seqs: Sequence[np.ndarray],
+    rows1: Sequence[int],
+    rows2: Sequence[int],
+    gap_opens: Sequence[int],
+    match: int = 2, mismatch: int = -2, gap_ext: int = 1,
+    band: int = 0,
+    device: Optional[torch.device] = None,
+) -> Tuple[torch.Tensor, List[MovesChunk]]:
+    """Launch the moves DP of every pair (the chunk plan of :func:`_plan`,
+    each chunk on the current stream) and return the pool tensor that holds
+    the call's rows with the launched chunks, nothing copied back: the
+    launches under :func:`sg_moves_pool_torch`.  ``device`` as there."""
+    if device is None:
+        device = stats_device(stats_backend_default())
+    with span("moves.stage"):
+        pool = SeqPool(torch.device(device))
+        buf = pool.ensure([seqs[r] for r in
+                           dict.fromkeys(list(rows1) + list(rows2))])
+        launched = []
+        for sl in _plan(seqs, rows1, rows2):
+            B = len(sl)
+            pm, base, W, d_max, len1, len2 = stage_chunk(
+                pool, seqs, [rows1[i] for i in sl], [rows2[i] for i in sl],
+                [gap_opens[i] for i in sl], [0] * B, [0] * B, band)
+            best, ops = moves_rows(buf, pm, base, W, d_max, band, match,
+                                   mismatch, gap_ext)
+            launched.append(MovesChunk(sl, pm, best, ops, len1, len2))
+    return buf, launched
+
+
+class PoolMoves(collections.abc.Sequence):
+    """What :func:`sg_moves_pool_torch` returns: the call's launched chunks,
+    still on the device (``buf`` and ``chunks``, as :func:`launch_moves_pool`
+    returns them), for consumers that read the traced paths there
+    (``ops/pileup.py``); read as a sequence, each pair's full-span move
+    array.  The first read copies every chunk back and reconstructs the
+    call's moves (the spans ``moves.wait`` and ``moves.reconstruct``) and
+    lets go of the device tensors."""
+
+    def __init__(self, n_pairs: int, buf: torch.Tensor,
+                 chunks: List[MovesChunk]) -> None:
+        self.buf: Optional[torch.Tensor] = buf
+        self.chunks: Optional[List[MovesChunk]] = chunks
+        self._n = n_pairs
+        self._moves: Optional[List[np.ndarray]] = None
+
+    def _read(self) -> List[np.ndarray]:
+        if self._moves is None:
+            out: List[Optional[np.ndarray]] = [None] * self._n
+            for ch in self.chunks:
+                with span("moves.wait"):
+                    best, ops = ch.best.cpu().numpy(), ch.ops.cpu().numpy()
+                with span("moves.reconstruct"):
+                    res = _reconstruct(best, ops, ch.len1, ch.len2)
+                for i, r in zip(ch.idx, res):
+                    out[i] = r
+            self._moves = out  # type: ignore[assignment]
+            self.buf = self.chunks = None
+        return self._moves
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i):
+        return self._read()[i]
+
+    def __iter__(self):
+        return iter(self._read())
+
+
 def sg_moves_pool_torch(
     seqs: Sequence[np.ndarray],
     rows1: Sequence[int],
@@ -340,7 +426,7 @@ def sg_moves_pool_torch(
     match: int = 2, mismatch: int = -2, gap_ext: int = 1,
     band: int = 0,
     device: Optional[torch.device] = None,
-) -> List[np.ndarray]:
+) -> Sequence[np.ndarray]:
     """Per pair: the full-span move array (terminal gaps included) of
     ``seqs[rows1[p]]`` against ``seqs[rows2[p]]``, identical in layout to
     ops/align.sg_align_batch, computed on ``device`` (a CUDA device runs
@@ -348,35 +434,14 @@ def sg_moves_pool_torch(
     ``stats_device(stats_backend_default())``, so ``cuda:0`` unless the
     caller asks for the CPU).  The call's rows cross to the device once;
     every chunk is launched on the current stream before any result is
-    copied back."""
+    copied back, which happens at the first read of the returned
+    :class:`PoolMoves` (an empty list for no pairs)."""
     n_pairs = len(rows1)
     if n_pairs == 0:
         return []
-    if device is None:
-        device = stats_device(stats_backend_default())
-    with span("moves.stage"):
-        pool = SeqPool(torch.device(device))
-        buf = pool.ensure([seqs[r] for r in
-                           dict.fromkeys(list(rows1) + list(rows2))])
-        chunks = _plan(seqs, rows1, rows2)
-        launched = []
-        for sl in chunks:
-            B = len(sl)
-            pm, base, W, d_max, len1, len2 = stage_chunk(
-                pool, seqs, [rows1[i] for i in sl], [rows2[i] for i in sl],
-                [gap_opens[i] for i in sl], [0] * B, [0] * B, band)
-            best, ops = moves_rows(buf, pm, base, W, d_max, band, match,
-                                   mismatch, gap_ext)
-            launched.append((best, ops, len1, len2))
-    out: List[Optional[np.ndarray]] = [None] * n_pairs
-    for sl, (best, ops, len1, len2) in zip(chunks, launched):
-        with span("moves.wait"):
-            best, ops = best.cpu().numpy(), ops.cpu().numpy()
-        with span("moves.reconstruct"):
-            res = _reconstruct(best, ops, len1, len2)
-        for i, r in zip(sl, res):
-            out[i] = r
-    return out  # type: ignore[return-value]
+    buf, launched = launch_moves_pool(seqs, rows1, rows2, gap_opens, match,
+                                      mismatch, gap_ext, band, device)
+    return PoolMoves(n_pairs, buf, launched)
 
 
 def sg_moves_batch_torch(pairs, gap_opens, match=2, mismatch=-2, gap_ext=1,
@@ -385,6 +450,7 @@ def sg_moves_batch_torch(pairs, gap_opens, match=2, mismatch=-2, gap_ext=1,
     array objects share one pool row.  ``device=None``: the configured
     backend's device, as there."""
     seqs, rows1, rows2 = pair_rows(pairs)
-    return sg_moves_pool_torch(seqs, rows1, rows2, gap_opens, match=match,
-                               mismatch=mismatch, gap_ext=gap_ext, band=band,
-                               device=device)
+    return list(sg_moves_pool_torch(seqs, rows1, rows2, gap_opens,
+                                    match=match, mismatch=mismatch,
+                                    gap_ext=gap_ext, band=band,
+                                    device=device))

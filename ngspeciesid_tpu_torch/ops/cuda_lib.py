@@ -113,6 +113,8 @@ SIGNATURES = {
     "ngsid_moves_state_ints": ([_ci], _ci),
     "ngsid_moves_launch": ([_vp] * 7 + [_ci] * 13 + [_vp], _ci),
     "ngsid_full_dp_launch": ([_vp] * 6 + [_ci] * 11 + [_vp], _ci),
+    "ngsid_pileup_walk_launch": ([_vp] * 13 + [_ci] * 5 + [_vp], _ci),
+    "ngsid_pileup_reduce_launch": ([_vp] * 7 + [_ci] * 3 + [_vp], _ci),
     "ngsid_error_string": ([_ci], ctypes.c_char_p),
 }
 

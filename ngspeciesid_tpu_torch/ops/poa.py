@@ -36,8 +36,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import align_moves, pileup
 from .align import DIAG, LEFT, UP, sg_align_batch
-from ..device import stats_backend_default
+from .align_stats import pair_rows
+from ..device import stats_backend_default, stats_device
 from ..spans import count, span
 from ..utils.phred import PHRED_TO_P_CAPPED
 
@@ -278,18 +280,28 @@ def _pileup_stats_native(
         windows=windows,
     )
     st.votes, st.qvotes, st.coverage = votes, qvotes, coverage
-    ins_votes, ins_open = st.ins_votes, st.ins_open
-    eb = ev_bytes.tobytes()
+    _fold_events(st, ev_pos, ev_w, ev_len, ev_bytes)
+    return st
+
+
+def _fold_events(st: PileupStats, ev_pos: np.ndarray, ev_w: np.ndarray,
+                 ev_len: np.ndarray, ev_bytes: np.ndarray) -> None:
+    """Fold insertion events, given in the walk's order, into
+    ``st.ins_votes`` and ``st.ins_open``: the same keys, values, and key
+    order in each dict as the walk's ``add_ins`` one event at a time.
+
+    Vectorized (the per-event python loop cost ~5 s at 200 polished
+    centers — ~4.5M insertion events): events are grouped by (pos, inserted
+    string) with a packed int64 key, each group's weights summed with a
+    STABLE order so the per-key float accumulation order matches the
+    sequential walk bit-for-bit (parity-tested), and the python dicts are
+    touched once per distinct (pos, string), in the order of each group's
+    first event.  Events too long to pack are added one by one."""
     n_ev = int(ev_pos.size)
     if n_ev == 0:
-        return st
-    # Vectorized event fold (the per-event python loop cost ~5 s at 200
-    # polished centers — ~4.5M insertion events).  Group events by
-    # (pos, inserted string) with a packed int64 key, sum weights per
-    # group with a STABLE order so the per-key float accumulation order
-    # matches the sequential walk bit-for-bit (parity-tested), and touch
-    # the python dicts once per distinct (pos, string) instead of once
-    # per event.  Events too long to pack take the original loop.
+        return
+    ins_votes, ins_open = st.ins_votes, st.ins_open
+    eb = ev_bytes.tobytes()
     off_arr = np.zeros(n_ev + 1, np.int64)
     np.cumsum(ev_len, out=off_arr[1:])
     ins_open += np.bincount(ev_pos, minlength=ins_open.size).astype(np.float64)
@@ -297,7 +309,7 @@ def _pileup_stats_native(
     sbits = max(1, int(present.size).bit_length())  # symbols mapped to 1..n
     lut = np.zeros(256, np.int64)
     lut[present] = np.arange(1, present.size + 1)
-    pos_bits = int(center.size + 1).bit_length()
+    pos_bits = int(ins_open.size).bit_length()
     max_pack = (62 - pos_bits) // sbits
     ln_max = int(ev_len.max())
     small = ev_len <= max_pack
@@ -308,11 +320,13 @@ def _pileup_stats_native(
                                                  sym.size - 1)], 0)
         key = (key << sbits) | bj
     idx_small = np.flatnonzero(small)
+    firsts = np.zeros(0, np.int64)
+    gw: List[float] = []
     if idx_small.size:
         ks = key[idx_small]
-        order = idx_small[np.argsort(ks, kind="stable")]
-        ks_sorted = key[order]
-        gfirst = np.empty(order.size, bool)
+        sort = np.argsort(ks, kind="stable")
+        ks_sorted = ks[sort]
+        gfirst = np.empty(idx_small.size, bool)
         gfirst[0] = True
         np.not_equal(ks_sorted[1:], ks_sorted[:-1], out=gfirst[1:])
         starts = np.flatnonzero(gfirst)
@@ -321,18 +335,68 @@ def _pileup_stats_native(
         # reproduces the python walk's per-key float accumulation
         # bit-for-bit (reduceat would not — it sums pairwise)
         ginv = np.empty(idx_small.size, np.int64)
-        ginv[np.argsort(ks, kind="stable")] = np.cumsum(gfirst) - 1
+        ginv[sort] = np.cumsum(gfirst) - 1
         gw = np.bincount(ginv, weights=ev_w[idx_small],
-                         minlength=starts.size)
-        for s, wsum in zip(starts.tolist(), gw.tolist()):
-            e = int(order[s])
-            o = int(off_arr[e])
-            ins_votes[int(ev_pos[e])][eb[o: o + int(ev_len[e])]] = wsum
-    for e in np.flatnonzero(~small).tolist():
-        o = int(off_arr[e])
-        d = ins_votes[int(ev_pos[e])]
-        k2 = eb[o: o + int(ev_len[e])]
-        d[k2] = d.get(k2, 0.0) + float(ev_w[e])
+                         minlength=starts.size).tolist()
+        firsts = idx_small[sort[starts]]   # stable: each group's first event
+    # groups and long events in the order of their (first) event
+    items = np.concatenate([firsts, np.flatnonzero(~small)])
+    n_groups = firsts.size
+    order = np.argsort(items, kind="stable")
+    es = items[order]
+    for t, p, o, n, w in zip(order.tolist(), ev_pos[es].tolist(),
+                             off_arr[es].tolist(), ev_len[es].tolist(),
+                             ev_w[es].tolist()):
+        d = ins_votes[p]
+        k = eb[o: o + n]
+        if t < n_groups:
+            d[k] = gw[t]
+        else:
+            d[k] = d.get(k, 0.0) + w
+
+
+def _pileup_stats_device(
+    center: np.ndarray,
+    reads: Sequence[np.ndarray],
+    quals: Optional[Sequence[np.ndarray]],
+    windows: Optional[np.ndarray],
+    pairs: List[Tuple[np.ndarray, np.ndarray]],
+    device,
+) -> PileupStats:
+    """The moves DP of ``pairs`` (each read against the center or its
+    window) and the accumulation on ``device``: the moves kernel's
+    traced paths stay there (the chunks of
+    ``align_moves.sg_moves_pool_torch``'s result, whose moves are never
+    read here) and ``ops/pileup.py`` (its kernel on a CUDA device, its
+    plain version on the CPU) turns them into the column counts and
+    events; only those cross to the host.  Bit-identical to :func:`_walk`
+    over the full-span moves of the same DP."""
+    seqs, rows1, rows2 = pair_rows(pairs)
+    moves = align_moves.sg_moves_pool_torch(
+        seqs, rows1, rows2, [POA_OPEN] * len(pairs), match=POA_MATCH,
+        mismatch=POA_MISMATCH, gap_ext=POA_EXT, band=POA_BAND, device=device)
+    count("poa.reads", len(reads))
+    with span("poa.walk"):
+        st = pileup_from_chunks(center.size, reads, quals, windows,
+                                moves.buf, moves.chunks)
+    count("poa.walk_card", len(reads))
+    return st
+
+
+def pileup_from_chunks(L: int, reads: Sequence[np.ndarray],
+                       quals: Optional[Sequence[np.ndarray]],
+                       windows: Optional[np.ndarray], pool,
+                       chunks: List) -> PileupStats:
+    """The PileupStats of ``reads`` against a center of length L from the
+    launched moves chunks of their pairs and the pool tensor they read
+    (``ops/pileup.accumulate``): the column counts as they come back, the
+    events folded by :func:`_fold_events`."""
+    st = PileupStats(L)
+    stats, events = pileup.accumulate(L, reads, quals, windows, pool, chunks)
+    st.votes = stats[: 5 * L].reshape(L, _N_SYM)
+    st.qvotes = stats[5 * L: 10 * L].reshape(L, _N_SYM)
+    st.coverage = stats[10 * L: 11 * L + 1]
+    _fold_events(st, *pileup.event_arrays(reads, quals, events))
     return st
 
 
@@ -351,10 +415,11 @@ def pileup_stats(
     fire at true center termini (lo == 0 / hi == L).
 
     ``native`` runs the fused DP + accumulation of the C++ engine; ``cuda``
-    and ``torch`` the moves kernel (or its plain version) and ``host`` the
-    numpy mirror, each followed by the accumulation walk below, so outputs
-    are bit-identical whenever the optimal paths stay inside the band (the
-    polish-window contract)."""
+    and ``torch`` the moves kernel (or its plain version) and the pileup
+    kernel of ``ops/pileup.py`` (or its plain version) on its traced paths;
+    ``host`` the numpy mirror followed by the accumulation walk below
+    (:func:`_walk`).  Outputs are bit-identical whenever the optimal paths
+    stay inside the band (the polish-window contract)."""
     L = center.size
     st = PileupStats(L)
     if not reads or L == 0:
@@ -367,6 +432,9 @@ def pileup_stats(
     else:
         pairs = [(center[windows[i, 0]:windows[i, 1]], r)
                  for i, r in enumerate(reads)]
+    if backend in ("cuda", "torch"):
+        return _pileup_stats_device(center, reads, quals, windows, pairs,
+                                    stats_device(backend))
     moves_all = sg_align_batch(pairs, [POA_OPEN] * len(pairs),
                                match=POA_MATCH, mismatch=POA_MISMATCH,
                                gap_ext=POA_EXT, backend=backend,
@@ -378,7 +446,9 @@ def pileup_stats(
 
 
 def _walk(st: PileupStats, center, reads, quals, windows, moves_all) -> None:
-    """Accumulate each read's moves against the center into ``st``."""
+    """Accumulate each read's moves against the center into ``st``: the
+    ``host`` backend's pileup, and the oracle ``ops/pileup.py`` is held
+    to."""
     L = center.size
     votes, qvotes = st.votes, st.qvotes
     ins_votes, ins_open = st.ins_votes, st.ins_open

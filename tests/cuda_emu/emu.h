@@ -1,11 +1,11 @@
-// A SIMT emulation of the CUDA features csrc/stats_kernel.cu and
-// csrc/moves_kernel.cu use, for running their sources on a CPU with g++
-// (tests/test_torch_cuda_emulated.py).  One OS thread per CUDA thread, the
-// blocks of a launch one after another; warp shuffles, ballots and
-// __syncwarp meet at a per-warp barrier, bar.sync at a per-id barrier of
-// the given thread count, __shared__ variables are statics (one block runs
-// at a time).  It checks the kernels' logic, not their speed, and not
-// what only the card shows (memory ordering, occupancy, ptxas).
+// A SIMT emulation of the CUDA features the kernels of csrc/*.cu use, for
+// running their sources on a CPU with g++ (tests/test_torch_cuda_emulated.py).
+// One OS thread per CUDA thread, the blocks of a launch one after another;
+// warp shuffles, ballots and __syncwarp meet at a per-warp barrier, bar.sync
+// at a per-id barrier of the given thread count, __shared__ variables are
+// statics (one block runs at a time).  It checks the kernels' logic, not
+// their speed, and not what only the card shows (memory ordering,
+// occupancy, ptxas).
 #pragma once
 #include <algorithm>
 #include <chrono>
@@ -46,6 +46,10 @@ T __ldg(const T* p) {
   return *p;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
 
 // A barrier of n arrivals.  A kernel whose threads do not all arrive (a
 // shuffle or bar.sync that diverges) would wait forever: after 60 s the

@@ -60,7 +60,8 @@ def ctypes_kind(t):
 def test_sources_define_the_kernels_entry_points():
     found = c_functions()
     assert {"ngsid_stats_launch", "ngsid_moves_launch",
-            "ngsid_full_dp_launch", "ngsid_error_string"} <= set(found)
+            "ngsid_full_dp_launch", "ngsid_pileup_walk_launch",
+            "ngsid_pileup_reduce_launch", "ngsid_error_string"} <= set(found)
 
 
 @pytest.mark.parametrize("name", sorted(cuda_lib.SIGNATURES))

@@ -1,14 +1,15 @@
-"""The CUDA sources of the stats, moves and full-DP kernels, run on the CPU.
+"""The CUDA sources of the port's kernels, run on the CPU.
 
-``csrc/stats_kernel.cu``, ``csrc/moves_kernel.cu`` and
-``csrc/full_dp_kernel.cu`` are compiled with g++ against
-``tests/cuda_emu/emu.h``, a SIMT emulation (one OS thread per CUDA thread;
-warp shuffles, ballots and named barriers as thread barriers), and their
-rows and op streams must equal the plain PyTorch versions bit for bit under
-every launch geometry the kernels take.  This checks the kernels' logic
-(lane frames, halos, the window schedule's bits, the fixed frame, trackers,
-the batched traceback); that they build for the card and how fast they run
-is chip_smoke.py's part.
+``csrc/stats_kernel.cu``, ``csrc/moves_kernel.cu``,
+``csrc/full_dp_kernel.cu`` and ``csrc/pileup_kernel.cu`` are compiled with
+g++ against ``tests/cuda_emu/emu.h``, a SIMT emulation (one OS thread per
+CUDA thread; warp shuffles, ballots and named barriers as thread barriers),
+and their rows, op streams and pileups must equal the plain PyTorch
+versions bit for bit under every launch geometry the kernels take.  This
+checks the kernels' logic (lane frames, halos, the window schedule's bits,
+the fixed frame, trackers, the batched traceback, the pileup's walk and
+ordered reduction); that they build for the card and how fast they run is
+chip_smoke.py's part.
 """
 
 import ctypes
@@ -24,9 +25,11 @@ import torch
 from ngspeciesid_tpu_torch.ops import align_full as F
 from ngspeciesid_tpu_torch.ops import align_moves as M
 from ngspeciesid_tpu_torch.ops import align_stats as A
-from ngspeciesid_tpu_torch.ops import cuda_lib
-from ngspeciesid_tpu_torch.ops.poa import (POA_EXT, POA_MATCH, POA_MISMATCH,
-                                           POA_OPEN)
+from ngspeciesid_tpu_torch.ops import cuda_lib, pileup
+from ngspeciesid_tpu_torch.ops.poa import (POA_BAND, POA_EXT, POA_MATCH,
+                                           POA_MISMATCH, POA_OPEN)
+
+from .test_torch_pileup import case, pairs_of
 
 CPU = torch.device("cpu")
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
@@ -58,14 +61,14 @@ def libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_emu")
     shutil.copy(os.path.join(EMU, "emu.h"), out / "emu.h")
     for name in ("wavefront.cuh", "moves_policy.cuh", "stats_kernel.cu",
-                 "moves_kernel.cu", "full_dp_kernel.cu"):
+                 "moves_kernel.cu", "full_dp_kernel.cu", "pileup_kernel.cu"):
         with open(os.path.join(cuda_lib.CSRC, name)) as f:
             text = translate(f.read())
         (out / name.replace(".cu", ".cpp", 1 if name.endswith(".cu")
                             else 0)).write_text(text)
     (out / "globals.cpp").write_text(GLOBALS)
     found = {}
-    for kind in ("stats", "moves", "full_dp"):
+    for kind in ("stats", "moves", "full_dp", "pileup"):
         so = out / f"lib{kind}.so"
         subprocess.run([gxx, "-std=c++17", "-O1", "-fPIC", "-shared",
                         "-pthread", "-w", f"-I{out}", "-o", str(so),
@@ -220,3 +223,44 @@ def test_full_dp_kernel_source_equals_plain(libs, B, lo, hi, poa):
         assert err == 0
         assert torch.equal(best, want_best), geo
         assert torch.equal(ops, want_ops), geo
+
+
+@pytest.mark.parametrize("with_quals,windowed", [
+    (True, False), (False, False), (True, True)])
+def test_pileup_kernel_source_equals_plain(libs, with_quals, windowed):
+    rng = np.random.default_rng(31 + with_quals + 2 * windowed)
+    center, reads, quals, windows = case(rng, 160, 14, windowed)
+    if not with_quals:
+        quals = None
+    seqs, r1, r2 = A.pair_rows(pairs_of(center, reads, windows))
+    pool, chunks = M.launch_moves_pool(
+        seqs, r1, r2, [POA_OPEN] * len(reads), POA_MATCH, POA_MISMATCH,
+        POA_EXT, POA_BAND, CPU)
+    L = center.size
+    want = pileup.stage_call(L, reads, quals, windows, chunks, CPU)
+    pileup.launch(pool, chunks, want)
+    got = pileup.stage_call(L, reads, quals, windows, chunks, CPU)
+    got.sym.fill_(7)                       # what the reads leave untouched
+    got.wt.fill_(float("nan"))
+    lib = libs["pileup"]
+    at = 0
+    for ch in chunks:
+        B = len(ch.idx)
+        assert lib.ngsid_pileup_walk_launch(
+            ch.ops.data_ptr(), ch.best.data_ptr(), ch.pm.data_ptr(),
+            pool.data_ptr(), got.idx[at:].data_ptr(), got.rinfo.data_ptr(),
+            got.quals.data_ptr(), got.wtab.data_ptr(), got.sym.data_ptr(),
+            got.wt.data_ptr(), got.spans.data_ptr(), got.ev.data_ptr(),
+            got.nev.data_ptr(), B, ch.ops.shape[1], L, got.ev.shape[1],
+            int(got.has_quals), None) == 0
+        at += B
+    assert torch.equal(got.spans, want.spans)
+    assert torch.equal(got.nev, want.nev)
+    assert lib.ngsid_pileup_reduce_launch(
+        got.sym.data_ptr(), got.wt.data_ptr(), got.spans.data_ptr(),
+        got.ev.data_ptr(), got.nev.data_ptr(), got.stats.data_ptr(),
+        got.evout.data_ptr(), len(reads), L, got.ev.shape[1], None) == 0
+    assert torch.equal(got.stats, want.stats)
+    n = int(want.stats[-1])
+    assert n > 0
+    assert torch.equal(got.evout[:n], want.evout[:n])
