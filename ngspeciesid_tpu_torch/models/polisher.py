@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..spans import count, span
+
 N_FEATURES = 16
 N_CLASSES = 5  # A C G T deletion
 HIDDEN = 128
@@ -222,10 +224,13 @@ def forward_logits(model: GRUPolisher, features: np.ndarray) -> np.ndarray:
     """Logits of (B, L, N_FEATURES) float32 features, on the model's
     device, as a numpy array."""
     dev = next(model.parameters()).device
-    with torch.no_grad(), _full_fp32():
-        logits = model(torch.from_numpy(features).to(dev))
+    with span("polisher.forward"):
+        with torch.no_grad(), _full_fp32():
+            logits = model(torch.from_numpy(features).to(dev))
+        out = logits.cpu().numpy()
     FORWARDS[str(dev)] = FORWARDS.get(str(dev), 0) + 1
-    return logits.cpu().numpy()
+    count("polisher.forwards")
+    return out
 
 
 def neural_polish_round(model: GRUPolisher, center: np.ndarray, reads,

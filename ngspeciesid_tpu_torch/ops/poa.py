@@ -619,9 +619,12 @@ def polish_round(
         return center
     if windows is None and auto_window and center.size >= AUTO_WINDOW_MIN_CENTER:
         from .mapping import map_reads_to_center
-        with span("poa.orient"):
+        with span("poa.window"):
             mappings = map_reads_to_center(center, reads)
-        windows = polish_windows(center, reads, mappings)
+            windows = polish_windows(center, reads, mappings)
+        count("poa.window_reads", len(reads))
+        count("poa.windowed", 0 if windows is None else int(
+            np.count_nonzero(windows[:, 1] - windows[:, 0] < center.size)))
     st = pileup_stats(center, reads, quals, windows)
     with span("poa.call"):
         return _call(center, st, quals is not None)
